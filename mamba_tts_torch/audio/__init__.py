@@ -1,0 +1,1 @@
+"""audio of the PyTorch/CUDA port (see mamba_tts_torch/__init__.py)."""
