@@ -14,8 +14,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              kernel, the plain version and a ``torch.matmul`` yardstick, with
              the weight stream cold in L2 (rotating copies) and hot.
 3. slice   — serve through ``load_synthesizer(TTSConfig(), quant=...)`` at full
-             default width with seeded random weights: (a) int8_kv, 1024 frames
-             (12.8 s, 5,120 tokens); (b) int8, a batch of 4 at 256 frames;
+             default width with seeded random weights: (a) int8_kv, 256 frames
+             (3.2 s, 1,280 tokens; 1,024 frames before the megakernel requests
+             joined this script); (b) int8, a batch of 4 at 256 frames;
              (c) int8, ``register_voice`` then ``synthesize`` by name.  Each
              request checks finite waveforms of frames*200 samples and that the
              kernel ran exactly 6 * n_layers times per decode step, and splits
@@ -26,6 +27,34 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              (the int8 tolerances of tests/test_decode_megakernel.py).
 5. profile — torch.profiler over a window of decode steps: device busy share
              and the kernels that take the time.
+6. megakernel kernel — the one-launch decode kernel against its plain PyTorch
+             version on the card at full width (8 layers, memory 1,536), 8
+             frames = 40 steps, B in {1, 2, 4} on the three dtype rungs (every
+             batch tile the requests launch; 2 is the chunked request's
+             remainder) and B = 8 (the most one launch takes) on the first and
+             the last, both teacher-forced with the same tokens: relative max logit error
+             <= 3e-2 over the real token columns, argmax agreement >= 90%,
+             final conv state within 3e-2 and SSM state within 1e-1 of their
+             largest magnitude; one sampled run with a given noise tensor; and
+             the feedback path exactly: a free run, then a teacher-forced run
+             on the tokens it produced, give bit-identical logits, and two
+             free runs are bit-identical.
+7. megakernel slice — ``load_synthesizer(TTSConfig(), quant="megakernel")``:
+             (d) the flagship request, B=1, 1,024 frames (12.8 s, 5,120
+             tokens); (e) a batch of 4 at 256 frames; (f) a batch of 10 at 64
+             frames, more than one launch takes, so that it runs as chunks;
+             (g) a sampled request (temperature 0.8), repeated with the same
+             seed and with another.  Checks: finite waveforms of frames*200
+             samples, rows differ, one launch per chunk, no int8_matvec
+             launch, same seed repeats and another seed differs.
+8. megakernel times — µs per step of whole flagship decodes (CUDA events) at
+             B=1 and B=4 for each rung, beside the byte bound; one launch at
+             64 frames (320 steps, the chunked request's length) timed against
+             the plain version, their outputs held to phase 6's limits so that
+             late steps are checked too; one step split into
+             each stage's work and each grid barrier's wait (the kernel's
+             ``stage_clocks`` diagnostic); torch.profiler over the flagship
+             request for the device's idle share.
 
 The line before the last is the card's ``name, power.limit``; the one before
 it is the kernel table; the last line is
@@ -48,6 +77,9 @@ DECODE_SHAPES = [  # (name, K, N) of the six int8 products of one decoder layer 
 ]
 TEXT = "The quick brown fox jumps over the lazy dog, then rests beside the quiet river."
 STYLE = "a calm female voice speaking slowly"
+TEXTS = [TEXT, "Hello there.", "Numbers like 42 and 1999 are spoken too.",
+         "A short one, with a pause; then more."]
+STYLES = [STYLE, "fast and loud", "whispering", STYLE]
 
 
 def emit(obj):
@@ -219,12 +251,9 @@ def phase_slice(torch):
         launches += n
         return wavs
 
-    serve("a_int8_kv_12.8s", lambda: synth_kv.synthesize(TEXT, STYLE, voice, frames=1024),
-          1024, 1)
-    texts = [TEXT, "Hello there.", "Numbers like 42 and 1999 are spoken too.",
-             "A short one, with a pause; then more."]
+    serve("a_int8_kv_3.2s", lambda: synth_kv.synthesize(TEXT, STYLE, voice, frames=256), 256, 1)
     wb = serve("b_int8_batch4", lambda: synth_q.synthesize_batch(
-        texts, [STYLE, "fast and loud", "whispering", STYLE], [voice] * 4, frames=256), 256, 4)
+        TEXTS, STYLES, [voice] * 4, frames=256), 256, 4)
     for i in range(4):
         for j in range(i + 1, 4):
             check(not np.allclose(wb[i], wb[j]), f"batch rows {i} and {j} are identical")
@@ -235,7 +264,8 @@ def phase_slice(torch):
 
 
 def _condition(torch, synth, B=1):
-    ids, _, mask = synth.frontend.encode_batch([TEXT] * B, pad_to=synth.cfg.data.max_text_len)
+    ids, _, mask = synth.frontend.encode_batch([TEXTS[i % 4] for i in range(B)],
+                                               pad_to=synth.cfg.data.max_text_len)
     voice_codec = synth._encode_voice([_voice()] * B)
     ids, mask, voice = synth._tensors(ids, mask, voice_codec)
     style = synth.style_encoder.embed([STYLE] * B)
@@ -345,6 +375,314 @@ def phase_profile(torch, synth, steps=32, frames=1024):
     return row
 
 
+# ---------------------------------------------------------------- megakernel
+
+
+def _step_bytes(mk, cfg, B, memory_len, wd, kvd):
+    """Bytes one decode step must read: the plan (weights, K/V, scales, mask,
+    FiLM), the state and the step's rows.  The token-embedding table is read
+    one row per batch row, so its other rows are taken off."""
+    Vpad = -(-cfg.vocab_size_audio // 128) * 128
+    whole = mk.plan_resident_bytes(cfg, B, memory_len, wd, kvd, total_steps=1)
+    return whole - Vpad * cfg.d_model * 2 + B * cfg.d_model * 2
+
+
+def _step_ops(cfg, B, Tmp):
+    """Multiply-adds of one step, times two: the six projections, the x/dt
+    projections, the attention products and the vocab head."""
+    m = cfg.with_mamba_dims().mamba
+    d, di, dff = cfg.d_model, m.d_inner, cfg.d_ff
+    Vpad = -(-cfg.vocab_size_audio // 128) * 128
+    per_layer = (d * 2 * di + di * (m.dt_rank_actual + 2 * m.d_state) + m.dt_rank_actual * di
+                 + di * d + 2 * d * d + 2 * d * Tmp + 2 * d * dff)
+    return 2 * B * (cfg.n_layers * per_layer + d * Vpad)
+
+
+def _forced(torch, cfg, total, B, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    forced = torch.randint(cfg.num_special_tokens, cfg.vocab_size_audio, (total, B),
+                           generator=g, device="cuda", dtype=torch.int32)
+    forced[0] = cfg.bos_id
+    return forced
+
+
+def _hold_to_plain(torch, cfg, got, want, tag, **row):
+    """One kernel run against the plain version's run on the same plan and
+    forced tokens: logits over the real token columns and the final states,
+    within the megakernel's limits.  Returns the largest absolute logit error."""
+    V, sp = cfg.vocab_size_audio, cfg.num_special_tokens
+    g, w = got.logits[:, :, sp:V], want.logits[:, :, sp:V]
+    check(bool(torch.isfinite(g).all()), f"{tag}: non-finite logits")
+    err = float((g - w).abs().max())
+    rel = err / float(w.abs().max())
+    agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+    conv = float((got.conv_state.float() - want.conv_state.float()).abs().max()
+                 / want.conv_state.float().abs().max())
+    ssm = float((got.ssm_state - want.ssm_state).abs().max() / want.ssm_state.abs().max())
+    emit({"phase": "megakernel_kernel", "check": tag, **row, "steps": g.shape[0],
+          "rel_max_logit_err": rel, "max_abs_logit_err": err, "argmax_agreement": agree,
+          "conv_state_rel_err": conv, "ssm_state_rel_err": ssm,
+          "limits": {"rel": 3e-2, "agree": 0.9, "conv": 3e-2, "ssm": 1e-1}})
+    check(rel <= 3e-2, f"{tag}: relative max logit error {rel}")
+    check(agree >= 0.9, f"{tag}: argmax agreement {agree}")
+    check(conv <= 3e-2, f"{tag}: conv state relative error {conv}")
+    check(ssm <= 1e-1, f"{tag}: SSM state relative error {ssm}")
+    return err
+
+
+def phase_megakernel_kernel(torch, synth, frames=8):
+    """The kernel against its plain version at full width, at every batch tile
+    the requests launch (1, the chunked request's remainder 2, 4 and the
+    kernel's largest batch), and the feedback path exactly.  Returns the
+    largest absolute logit error seen."""
+    from mamba_tts_torch.ops import decode_megakernel as mk
+
+    dec, cfg = synth.decoder, synth.decoder.cfg
+    total = cfg.num_quantizers * frames
+    worst = 0.0
+
+    def versus_plain(tag, plan, forced, **row):
+        nonlocal worst
+        got = mk._megakernel_call(cfg, plan, frames, forced)
+        torch.cuda.synchronize()
+        want = mk.decode_megakernel_ref(cfg, plan, frames, forced)
+        torch.cuda.synchronize()
+        worst = max(worst, _hold_to_plain(torch, cfg, got, want, tag, **row))
+        return got
+
+    with torch.no_grad():
+        for B in (1, 2, 4, mk.MEGAKERNEL_MAX_BATCH):
+            th, mask, rh, rm, z = _condition(torch, synth, B)
+            KV, mm, films = dec.project_memories(th, mask, rh, rm, z)
+            check(KV[0][0].shape[2] == 1536, f"memory length {KV[0][0].shape[2]}, expected 1536")
+            forced = _forced(torch, cfg, total, B, seed=B)
+            # every rung up to B = 4; the kernel's largest batch on the first and last
+            for wd, kvd in mk._DTYPE_LADDER[::1 if B <= 4 else 2]:
+                plan = mk._build_plan(cfg, synth._qparams, KV, mm, films, frames, weight_dtype=wd,
+                                      kv_dtype=kvd, weight_plan=synth._weight_plans[wd])
+                versus_plain("teacher_forced", plan, forced, B=B, weights=wd, kv=kvd)
+            if B > 1:
+                continue
+            # the feedback path, exactly (plan: the last rung, int8/int8)
+            free = mk._megakernel_call(cfg, plan, frames).logits
+            again = mk._megakernel_call(cfg, plan, frames).logits
+            tokens = free.argmax(-1).to(torch.int32)  # (total, B)
+            bos = torch.full((1, B), cfg.bos_id, dtype=torch.int32, device="cuda")
+            tf = mk._megakernel_call(cfg, plan, frames, torch.cat([bos, tokens[:-1]])).logits
+            check(torch.equal(free, again), "two free runs differ")
+            check(torch.equal(free, tf), "free run and teacher-forced rerun differ")
+            check(torch.equal(tf.argmax(-1).to(torch.int32), tokens), "argmax(logits) != tokens")
+            # one sampled run with a given noise tensor: the kernel fed back
+            # argmax(logits + noise) if and only if forcing those tokens repeats it
+            g = torch.Generator(device="cuda").manual_seed(7)
+            noise = 0.8 * mk.gumbel_noise((total, B, plan.token_embed.shape[0]), g, "cuda")
+            sampled = mk._megakernel_call(cfg, plan, frames, gumbel=noise).logits
+            stoks = (sampled + noise).argmax(-1).to(torch.int32)
+            forced_s = torch.cat([bos, stoks[:-1]])
+            stf = versus_plain("sampled_then_forced", plan, forced_s, B=B, weights=wd, kv=kvd)
+            check(torch.equal(sampled, stf.logits), "sampled run and its teacher-forced rerun differ")
+            check(not torch.equal(stoks, tokens), "the noise changed no token")
+            emit({"phase": "megakernel_kernel", "check": "feedback", "free_equals_free": True,
+                  "free_equals_teacher_forced": True, "sampled_equals_teacher_forced": True,
+                  "sampled_tokens_changed": int((stoks != tokens).sum())})
+    return worst
+
+
+def phase_megakernel_slice(torch, voice):
+    import numpy as np
+
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.infer import synthesize as syn
+    from mamba_tts_torch.ops import decode_megakernel as mk
+    from mamba_tts_torch.ops.int8_matvec import int8_matvec
+
+    cfg = TTSConfig()
+    d = cfg.decoder
+    hop = cfg.codec.hop_length
+    t0 = time.perf_counter()
+    synth = syn.load_synthesizer(cfg, seed=0, quant="megakernel", device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "megakernel_slice", "setup_seconds": time.perf_counter() - t0})
+    decode_s = []
+    inner = synth.decode_tokens
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t)
+        return out
+
+    synth.decode_tokens = timed
+    memory_len = 256 * d.num_quantizers + cfg.data.max_text_len  # 3 s prompt bucket + padded text
+    max_batch = mk.megakernel_max_batch(d, memory_len)
+    results, launches = {}, 0
+
+    def serve(tag, fn, frames, batch, sampled=False):
+        nonlocal launches
+        mk._megakernel_call.launches = 0
+        int8_matvec.launches = 0
+        decode_s.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        wavs, info = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        chunks = -(-batch // max_batch)
+        n = mk._megakernel_call.launches
+        check(n == chunks, f"{tag}: {n} megakernel launches, expected {chunks} chunks")
+        check(int8_matvec.launches == 0, f"{tag}: {int8_matvec.launches} int8_matvec launches: "
+              "a request of this slice took the step decode")
+        wavs = np.asarray(wavs).reshape(batch, -1)
+        check(wavs.shape[1] == frames * hop, f"{tag}: {wavs.shape[1]} samples, expected {frames * hop}")
+        check(bool(np.isfinite(wavs).all()), f"{tag}: non-finite waveform")
+        steps = d.num_quantizers * frames
+        tokens = batch * steps
+        decode = sum(decode_s)
+        rung = syn._megakernel_dtypes(d, min(batch, max_batch), memory_len, sampled=sampled)
+        row = {"phase": "megakernel_slice", "request": tag, "batch": batch, "frames": frames,
+               "tokens": tokens, "wall_seconds": wall, "tokens_per_s": tokens / wall,
+               "rtf": wall / (batch * frames / 80.0), "decode_seconds": decode,
+               "decode_us_per_step": decode / (chunks * steps) * 1e6,
+               "outside_decode_seconds": wall - decode, "megakernel_launches": n,
+               "int8_matvec_launches": 0, "rung": list(rung), "max_batch": max_batch}
+        emit(row)
+        results[tag] = row
+        launches += n
+        return wavs
+
+    def rows_differ(tag, w):
+        for i in range(len(w)):
+            for j in range(i + 1, len(w)):
+                check(not np.allclose(w[i], w[j]), f"{tag}: rows {i} and {j} are identical")
+
+    serve("d_megakernel_12.8s", lambda: synth.synthesize(TEXT, STYLE, voice, frames=1024), 1024, 1)
+    rows_differ("e", serve("e_megakernel_batch4", lambda: synth.synthesize_batch(
+        TEXTS, STYLES, [voice] * 4, frames=256), 256, 4))
+    big = max_batch + 2
+    texts = [TEXTS[i % 4] + " Take %d." % i for i in range(big)]
+    rows_differ("f", serve("f_megakernel_chunked", lambda: synth.synthesize_batch(
+        texts, [STYLES[i % 4] for i in range(big)], [voice] * big, frames=64), 64, big))
+
+    def sample(seed):
+        return serve(f"g_megakernel_sampled_seed{seed}", lambda: synth.synthesize(
+            TEXT, STYLE, voice, frames=128, temperature=0.8, seed=seed), 128, 1, sampled=True)
+
+    s0, s0b, s1 = sample(0), sample(0), sample(1)
+    check(np.array_equal(s0, s0b), "sampled request: the same seed gave another waveform")
+    check(not np.allclose(s0, s1), "sampled request: another seed gave the same waveform")
+    return synth, results, launches
+
+
+def phase_megakernel_times(torch, synth, voice, frames=1024):
+    """Whole flagship decodes by CUDA events for every rung at B=1 and B=4,
+    one 64-frame launch beside the plain version (timed, and held to it), and
+    the device's idle share over the flagship request."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mamba_tts_torch.ops import decode_megakernel as mk
+
+    dec, cfg = synth.decoder, synth.decoder.cfg
+    steps = cfg.num_quantizers * frames
+    rows = {}
+
+    def events_ms(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    with torch.no_grad():
+        for B in (1, 4):
+            th, mask, rh, rm, z = _condition(torch, synth, B)
+            KV, mm, films = dec.project_memories(th, mask, rh, rm, z)
+            Tm = KV[0][0].shape[2]
+            for wd, kvd in mk._DTYPE_LADDER:
+                plan = mk._build_plan(cfg, synth._qparams, KV, mm, films, frames, weight_dtype=wd,
+                                      kv_dtype=kvd, weight_plan=synth._weight_plans[wd])
+                ms, _ = events_ms(lambda: mk._megakernel_call(cfg, plan, frames))
+                nbytes = _step_bytes(mk, cfg, B, Tm, wd, kvd)
+                bound_us = max(nbytes / HBM_BYTES_PER_S,
+                               _step_ops(cfg, B, plan.K.shape[3]) / BF16_OPS_PER_S) * 1e6
+                row = {"phase": "megakernel_times", "B": B, "weights": wd, "kv": kvd,
+                       "frames": frames, "steps": steps, "launch_ms": ms,
+                       "us_per_step": ms / steps * 1e3, "tokens_per_s": B * steps / ms * 1e3,
+                       "step_bytes": nbytes, "bound_us_per_step": bound_us, "bound_by": "bytes",
+                       "plan_bytes": mk.plan_resident_bytes(cfg, B, Tm, wd, kvd, total_steps=steps)}
+                emit(row)
+                rows[(B, wd, kvd)] = row
+                del plan
+        # one launch at 64 frames (the chunked request's budget) against the plain version
+        f64 = 64
+        th, mask, rh, rm, z = _condition(torch, synth, 1)
+        KV, mm, films = dec.project_memories(th, mask, rh, rm, z)
+        wd, kvd = mk._DTYPE_LADDER[0]
+        plan = mk._build_plan(cfg, synth._qparams, KV, mm, films, f64, weight_dtype=wd,
+                              kv_dtype=kvd, weight_plan=synth._weight_plans[wd])
+        n64 = cfg.num_quantizers * f64
+        forced = _forced(torch, cfg, n64, 1, seed=3)
+        mk._megakernel_call(cfg, plan, f64, forced)
+        kernel_ms, got = events_ms(lambda: mk._megakernel_call(cfg, plan, f64, forced))
+        plain_ms, want = events_ms(lambda: mk.decode_megakernel_ref(cfg, plan, f64, forced))
+        err = _hold_to_plain(torch, cfg, got, want, "teacher_forced_320_steps", B=1,
+                             weights=wd, kv=kvd)
+        step_b = _step_bytes(mk, cfg, 1, KV[0][0].shape[2], wd, kvd)
+        once = mk.plan_resident_bytes(cfg, 1, KV[0][0].shape[2], wd, kvd, teacher_force=True,
+                                      total_steps=n64)
+        ops = n64 * _step_ops(cfg, 1, plan.K.shape[3])
+        one = {"phase": "megakernel_times", "launch": "B=1, 64 frames (320 steps), bf16/bf16, "
+               "teacher-forced", "ms": kernel_ms, "plain_ms": plain_ms, "max_abs_logit_err": err,
+               "bound_ms": max(n64 * step_b / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3,
+               "bound_by": "bytes",
+               "bound_if_read_once_ms": max(once / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3}
+        emit(one)
+        # where a step goes: block 0's cycle stamps around every barrier of the middle step
+        names = mk.stage_names(cfg)
+        clocks = torch.zeros(2 * len(names), dtype=torch.int64, device="cuda")
+        mk._megakernel_call(cfg, plan, f64, stage_clocks=clocks)
+        stamps = clocks.cpu().tolist()
+        work, wait, prev = {}, {}, None
+        for i, name in enumerate(names):
+            stage = name.split(".")[-1]
+            enter, leave = stamps[2 * i], stamps[2 * i + 1]
+            if prev is not None:
+                work[stage] = work.get(stage, 0) + enter - prev
+            wait[stage] = wait.get(stage, 0) + leave - enter
+            prev = leave
+        cycles = stamps[-1] - stamps[0]
+        emit({"phase": "megakernel_times", "stages": "B=1, bf16/bf16, one step, SM cycles of block 0 "
+              "summed over the layers: [work, barrier wait]", "step_cycles": cycles,
+              "barrier_share": sum(wait.values()) / cycles,
+              "cycles": {k: [work.get(k, 0), wait[k]] for k in wait}})
+
+    # the device's idle share over the flagship request, end to end
+    synth.synthesize(TEXT, STYLE, voice, frames=frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        synth.synthesize(TEXT, STYLE, voice, frames=frames)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    emit({"phase": "megakernel_times", "request": "flagship under torch.profiler",
+          "wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
+          "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+          "device_kernels": sum(e.count for e in kernels),
+          "top_kernels": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3, "calls": e.count}
+                          for e in top]})
+    return rows, one
+
+
 def main():
     import torch
 
@@ -364,6 +702,12 @@ def main():
     synth, _, launches = phase_slice(torch)
     phase_parity(torch, synth)
     phase_profile(torch, synth)
+    del synth
+    voice = _voice()
+    synth_mk, _, mk_launches = phase_megakernel_slice(torch, voice)
+    mk_worst = phase_megakernel_kernel(torch, synth_mk)
+    mk_rows, mk_one = phase_megakernel_times(torch, synth_mk, voice)
+    flagship = mk_rows[(1, "bfloat16", "bfloat16")]
 
     b1 = [r for r in rows if r["B"] == 1]
 
@@ -376,6 +720,15 @@ def main():
         "max_abs_err": worst, "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": "bytes", "library_ms": mean("library_ms"),
         "at": "mean per launch over the six decode shapes at B=1, weights cold in L2",
+    }, {
+        "name": "decode_megakernel", "route": "cuda",
+        "source": "mamba_tts_torch/ops/csrc/decode_megakernel.cu",
+        "replaces": "mamba_tts_tpu/ops/decode_megakernel.py:532", "launches": mk_launches,
+        "max_abs_err": max(mk_worst, mk_one["max_abs_logit_err"]), "ms": mk_one["ms"], "plain_ms": mk_one["plain_ms"],
+        "bound_ms": mk_one["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "at": mk_one["launch"] + "; the bound reads the plan once per step (it exceeds the L2)",
+        "flagship_launch_ms": flagship["launch_ms"], "flagship_us_per_step": flagship["us_per_step"],
+        "flagship_bound_us_per_step": flagship["bound_us_per_step"],
     }], "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

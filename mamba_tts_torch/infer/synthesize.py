@@ -5,14 +5,17 @@ counterpart of ``mamba_tts_tpu/infer/synthesize.py``.
     style prompt --BERT--> SMSD sample --> z_style
     voice prompt --FACodec encode--> ref tokens --embed--> ref_hidden
     duration predictor --> frame budget (64-frame buckets)
-    autoregressive decode over Q * frames tokens (plain or int8 step)
+    autoregressive decode over Q * frames tokens (step loop or megakernel)
     codec ids --FACodec decode--> waveform
 
 ``quant`` selects the decode: "none" (full-precision step), "int8" (the
-large per-step products through the Hopper ``int8_matvec`` kernel) or
-"int8_kv" (int8 weights and int8 cross-attention K/V).  "megakernel" and
-mesh-parallel serving are the next slices of the port and raise
-``NotImplementedError``.
+large per-step products through the Hopper ``int8_matvec`` kernel),
+"int8_kv" (int8 weights and int8 cross-attention K/V) or "megakernel" (the
+whole decode in one launch of the Hopper kernel of
+``ops/decode_megakernel.py``, greedy or Gumbel-max sampled, with the
+weight/K-V dtypes chosen per batch and memory length by its planner; a
+batch the planner finds no fit for takes the int8 step decode).
+Mesh-parallel serving is not ported yet and raises ``NotImplementedError``.
 
 Runs on the CUDA card unless ``device="cpu"`` is passed; with no card it
 raises rather than falling back.
@@ -20,7 +23,7 @@ raises rather than falling back.
 CLI:
     python -m mamba_tts_torch.infer.synthesize --text "hello world" \\
         --style_prompt "speak fast" --voice_wav prompt.wav --output out.wav \\
-        [--quant int8] [--device cuda]
+        [--quant megakernel] [--device cuda]
 """
 from __future__ import annotations
 
@@ -39,16 +42,41 @@ from mamba_tts_torch.models.decoder import greedy_decode
 from mamba_tts_torch.models.layers import seed_init
 from mamba_tts_torch.models.style_text_encoder import StyleTextEncoder
 from mamba_tts_torch.models.tts import MambaTTS
+from mamba_tts_torch.ops.decode_megakernel import (
+    build_weight_plan,
+    megakernel_fit,
+    megakernel_greedy_decode,
+    megakernel_max_batch,
+)
 from mamba_tts_torch.text.processor import PhonemeFrontend
 
-_MEGAKERNEL_TODO = (
-    "quant='megakernel' is the next slice of the port: the one-launch decode "
-    "kernel mamba_tts_tpu/ops/decode_megakernel.py:532 has no Hopper kernel yet "
-    "(PERF.md kernel table row 5, ROADMAP queue 1 item 7 and queue 2); use "
-    "quant='int8' or 'int8_kv'")
+# Steps per grid step of the TPU megakernel; the Hopper kernel loops over the
+# steps itself, so the value is only validated and results do not depend on it.
+_MEGAKERNEL_UNROLL = 1
 _MESH_TODO = (
     "mesh-parallel serving (mesh= / --dp_serving) is not ported yet "
     "(ROADMAP queue 1, parallelism item)")
+
+
+def _run_chunked(run, arrays, generator, chunk):
+    """Call ``run(*arrays, generator)`` in row chunks of at most ``chunk``
+    and concatenate the results along the rows.  The chunks run one after
+    the other and draw from ``generator`` in turn.  ``chunk=None`` (or a
+    batch within it) runs the batch whole."""
+    B = arrays[0].shape[0]
+    if chunk is None or B <= chunk:
+        return run(*arrays, generator)
+    return torch.cat([run(*(a[lo:lo + chunk] for a in arrays), generator)
+                      for lo in range(0, B, chunk)], dim=0)
+
+
+def _megakernel_dtypes(cfg, batch: int, memory_len: int, sampled: bool = False,
+                       unroll_steps: int = 1, budget_bytes: Optional[int] = None):
+    """(weight_dtype, kv_dtype) for a megakernel call at this batch and
+    cross-attention memory length, or None to take the int8 step decode
+    (``ops.decode_megakernel.megakernel_fit``)."""
+    return megakernel_fit(cfg, batch, memory_len, unroll_steps=unroll_steps, sampled=sampled,
+                          budget_bytes=budget_bytes)
 
 
 class Synthesizer:
@@ -65,10 +93,8 @@ class Synthesizer:
         mesh=None,
         device="cuda",
     ):
-        if quant == "megakernel":
-            raise NotImplementedError(_MEGAKERNEL_TODO)
-        if quant not in ("none", "int8", "int8_kv"):
-            raise ValueError(f"quant must be none|int8|int8_kv, got {quant!r}")
+        if quant not in ("none", "int8", "int8_kv", "megakernel"):
+            raise ValueError(f"quant must be none|int8|int8_kv|megakernel, got {quant!r}")
         if mesh is not None:
             raise NotImplementedError(_MESH_TODO)
         self.cfg = cfg
@@ -77,6 +103,12 @@ class Synthesizer:
         self.model = model.to(self.device).eval()
         self.decoder = self.model.decoder
         self._qparams = quantize_decoder_params(self.decoder) if quant != "none" else None
+        # one weight plan per weight dtype the planner can pick, built once, so
+        # that a decode call stacks, casts and folds no weights
+        self._weight_plans = None
+        if quant == "megakernel":
+            self._weight_plans = {wd: build_weight_plan(self.decoder.cfg, self._qparams, wd)
+                                  for wd in ("bfloat16", "int8")}
         self.tokenizer = tokenizer or FACodecTokenizer(cfg.codec, device=self.device)
         self.frontend = frontend or PhonemeFrontend(vocab_path=cfg.data.phoneme_vocab_path)
         self.style_encoder = style_encoder or StyleTextEncoder(cfg.style_encoder, device=self.device)
@@ -103,8 +135,19 @@ class Synthesizer:
         ref_hidden, ref_mask = model.embed_voice(voice_codec)
         kw = dict(text_mask=text_mask, ref_hidden=ref_hidden, ref_mask=ref_mask,
                   temperature=temperature, generator=generator)
+        mega = None
+        if self.quant == "megakernel":
+            mega = _megakernel_dtypes(
+                self.decoder.cfg, phoneme_ids.shape[0],
+                ref_hidden.shape[1] + text_hidden.shape[1], sampled=temperature > 0,
+                unroll_steps=_MEGAKERNEL_UNROLL)
         if self.quant == "none":
             res = greedy_decode(self.decoder, text_hidden, z_style, frames, **kw)
+        elif mega is not None:
+            res = megakernel_greedy_decode(
+                self.decoder, self._qparams, text_hidden, z_style, frames,
+                unroll_steps=_MEGAKERNEL_UNROLL, weight_dtype=mega[0], kv_dtype=mega[1],
+                weight_plan=self._weight_plans[mega[0]], **kw)
         else:
             res = greedy_decode_int8(self.decoder, self._qparams, text_hidden, z_style, frames,
                                      int8_kv=self.quant == "int8_kv", **kw)
@@ -165,9 +208,23 @@ class Synthesizer:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _decode_rows(self, arrays, frames: int, temperature: float, generator) -> np.ndarray:
-        """Decode rows at one frame budget; (B, Q*frames) tokens on the host."""
-        tokens = self.decode_tokens(*arrays, frames, temperature, generator)
-        return tokens.cpu().numpy()
+        """Decode rows at one frame budget; (B, Q*frames) tokens on the host.
+        The megakernel takes at most ``megakernel_max_batch`` rows at this
+        memory length (voice-codec tokens + text tokens) per call, so a
+        bigger batch runs as consecutive chunks; 0 runs the batch whole, and
+        ``decode_tokens`` then takes the int8 step decode by the same fit."""
+        chunk = None
+        if self.quant == "megakernel":
+            Q = self.cfg.decoder.num_quantizers
+            memory_len = arrays[3].shape[1] * Q + arrays[0].shape[1]
+            chunk = megakernel_max_batch(
+                self.decoder.cfg, memory_len, unroll_steps=_MEGAKERNEL_UNROLL,
+                sampled=temperature > 0) or None
+
+        def run(ids, mask, style, voice, gen):
+            return self.decode_tokens(ids, mask, style, voice, frames, temperature, gen)
+
+        return _run_chunked(run, arrays, generator, chunk).cpu().numpy()
 
     def synthesize(self, text: str, style_prompt: str, voice_wav, frames: Optional[int] = None,
                    temperature: float = 0.0, seed: int = 0) -> Tuple[np.ndarray, dict]:
@@ -280,8 +337,6 @@ def load_synthesizer(cfg: Optional[TTSConfig] = None, checkpoint_dir: Optional[s
             "checkpoint loading (orbax trees, FACodec and BERT checkpoints) is not "
             "ported yet (ROADMAP queue 1); load_synthesizer builds seeded random "
             "weights only")
-    if quant == "megakernel":
-        raise NotImplementedError(_MEGAKERNEL_TODO)
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
     cfg = cfg or TTSConfig()
@@ -308,7 +363,7 @@ def main(argv=None):
                         choices=("none", "int8", "int8_kv", "megakernel"),
                         help="decode numerics (int8 weight streaming through the "
                              "Hopper int8_matvec kernel; int8_kv also int8 K/V; "
-                             "megakernel is not ported yet and raises)")
+                             "megakernel = the whole decode in one kernel launch)")
     parser.add_argument("--texts_file", type=str, default=None,
                         help="batch mode: one text per line (style/voice prompts "
                              "shared); writes <output-stem>_NNN.wav per line")

@@ -1,6 +1,7 @@
 """The serving slice as a whole: the port's ``Synthesizer`` against the JAX
-package's, at the smoke config (float32), in the none, int8 and int8_kv
-decode modes, on weights carried across by ``mamba_tts_torch.bridge``.
+package's, at the smoke config (float32), in the none, int8, int8_kv and
+megakernel decode modes, on weights carried across by
+``mamba_tts_torch.bridge``.
 
 Both sides get the same text, style prompt, voice waveform and frame budget.
 ``torch.Generator`` cannot reproduce ``jax.random``, so the JAX side's style
@@ -19,12 +20,15 @@ from mamba_tts_tpu.infer.synthesize import Synthesizer as JSynthesizer
 from mamba_tts_tpu.infer.synthesize import load_synthesizer as j_load_synthesizer
 from mamba_tts_tpu.models.decoder import MambaTTSDecoder as JDecoder
 from mamba_tts_tpu.models.tts import MambaTTS as JMambaTTS
+from mamba_tts_tpu.ops import decode_megakernel as jmk
 from mamba_tts_torch import config as tcl
 from mamba_tts_torch.audio.codec import FACodecTokenizer
 from mamba_tts_torch.bridge import bert_from_params, facodec_from_params, mamba_tts_from_params
 from mamba_tts_torch.infer import quant_decode as tqd
+from mamba_tts_torch.infer import synthesize as tsyn_mod
 from mamba_tts_torch.infer.synthesize import Synthesizer, load_synthesizer
 from mamba_tts_torch.models.style_text_encoder import StyleTextEncoder
+from mamba_tts_torch.ops import decode_megakernel as tmk
 
 SMOKE = open("tests/smoke_config.json").read()
 J_CFG, T_CFG = jcl.from_json(SMOKE), tcl.from_json(SMOKE)
@@ -153,9 +157,66 @@ def assert_streams_agree(port_tokens, jax_tokens, jax_logits, margin=1e-3, min_a
     assert (port_tokens == jax_tokens).mean() >= min_agree
 
 
-@pytest.mark.parametrize("quant", ["none", "int8", "int8_kv"])
+def _megakernel_matches_jax(pair, jsyn, tsyn, monkeypatch, frames=8):
+    """quant="megakernel": the JAX side is driven at the ``_decode_fn`` level
+    (its Pallas kernel in interpret mode) at a frame budget interpret mode can
+    afford, as tests/test_utils_and_infer.py does; the port decodes the same
+    rows at the same budget through ``_decode_rows``.  The kernel works in
+    bf16 whatever the config's dtype, and the two sides sum in different
+    orders, so the logits are held to the megakernel's own limits (relative
+    max error 2e-2, argmax agreement 90%) with both sides fed the JAX stream,
+    and the free-running streams must agree up to their first near-tie."""
+    voice_codec = jsyn._encode_voice([pair["voice"]])
+    run = jsyn._decode_fn(frames, 0.0)
+    tokens_j = np.asarray(run(jnp.asarray(pair["ids"]), jnp.asarray(pair["mask"]),
+                              jnp.asarray(pair["style_bert"]), jnp.asarray(voice_codec),
+                              jax.random.PRNGKey(SEED)))
+    total = J_CFG.decoder.num_quantizers * frames
+    assert tokens_j.shape == (1, total)
+    inputs = np.concatenate([[[J_CFG.decoder.bos_id]], tokens_j[:, :-1]], axis=1)
+
+    # teacher-forced logits of both megakernel paths on the JAX stream
+    model, dec, mvars = JMambaTTS(J_CFG), JDecoder(J_CFG.decoder.with_mamba_dims()), pair["mvars"]
+    th = model.apply(mvars, pair["ids"], pair["mask"], method=JMambaTTS.encode_text)
+    rh, rm = model.apply(mvars, voice_codec, method=JMambaTTS.embed_voice)
+    dtypes = dict(zip(("weight_dtype", "kv_dtype"), tsyn_mod._megakernel_dtypes(
+        tsyn.decoder.cfg, 1, rh.shape[1] + th.shape[1])))
+    res_j = jmk.megakernel_greedy_decode(
+        dec, {"params": jsyn.params["decoder"]}, jsyn._qparams, th, pair["z"], frames,
+        text_mask=pair["mask"], ref_hidden=rh, ref_mask=rm, collect_logits=True, interpret=True,
+        forced_tokens=jnp.asarray(inputs[0]), **dtypes)
+    ids, mask, voice = tsyn._tensors(pair["ids"], pair["mask"], voice_codec)
+    with torch.no_grad():
+        th_t = tsyn.model.encode_text(ids, mask)
+        rh_t, rm_t = tsyn.model.embed_voice(voice)
+    res_t = tmk.megakernel_greedy_decode(
+        tsyn.decoder, tsyn._qparams, th_t, _t(pair["z"]), frames, text_mask=mask,
+        ref_hidden=rh_t, ref_mask=rm_t, collect_logits=True, forced_tokens=_t(inputs[0]),
+        weight_plan=tsyn._weight_plans[dtypes["weight_dtype"]], **dtypes)
+    sp = J_CFG.decoder.num_special_tokens
+    lj, lt = np.asarray(res_j.logits, np.float32)[0, :, sp:], res_t.logits.numpy()[0, :, sp:]
+    rel = np.abs(lt - lj).max() / np.abs(lj).max()
+    assert rel <= 2e-2, rel
+    assert (lt.argmax(-1) == lj.argmax(-1)).mean() >= 0.9
+
+    # the port's serving path at the same budget, JAX style sample injected
+    monkeypatch.setattr(tsyn.model, "sample_style", lambda b, generator=None: _t(pair["z"]))
+    style = _t(pair["style_bert"])
+    tokens_t = tsyn._decode_rows((ids, mask, style, voice), frames, 0.0, tsyn._generator(SEED))
+    assert tokens_t.shape == tokens_j.shape
+    assert (tokens_t >= sp).all() and (tokens_t < J_CFG.decoder.vocab_size_audio).all()
+    diff = np.nonzero(tokens_t[0] != tokens_j[0])[0]
+    if len(diff):  # streams part only where the JAX top-2 logits nearly tie
+        top2 = np.sort(lj[diff[0]])[-2:]
+        assert top2[1] - top2[0] <= 2e-2 * np.abs(lj).max(), (diff[0], top2)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int8_kv", "megakernel"])
 def test_synthesize_matches_jax(pair, quant, monkeypatch):
     jsyn, tsyn = _synths(pair, quant)
+    if quant == "megakernel":
+        _megakernel_matches_jax(pair, jsyn, tsyn, monkeypatch)
+        return
     # frame budgets
     frames_j = jsyn.predict_frames(pair["ids"], pair["mask"])
     frames_t = tsyn.predict_frames(pair["ids"], pair["mask"])
@@ -246,12 +307,101 @@ def test_register_voice_reuses_codec(pair, monkeypatch):
     assert calls == [] and wav.shape == (64 * T_CFG.codec.hop_length,)
 
 
-@pytest.mark.parametrize("what", ["megakernel", "mesh", "checkpoint", "no_card"])
+def test_run_chunked():
+    """Row chunks of at most ``chunk``, run in order with the one generator
+    (each chunk draws from it in turn) and concatenated; the batch runs whole
+    when ``chunk`` is None or covers it."""
+    calls = []
+
+    def fake_run(a, b, generator):
+        calls.append((a.shape[0], float(torch.rand((), generator=generator))))
+        return a * 10 + b
+
+    a = torch.arange(10, dtype=torch.float32)[:, None]
+    b = torch.ones((10, 1))
+    out = tsyn_mod._run_chunked(fake_run, (a, b), torch.Generator().manual_seed(0), chunk=4)
+    assert out.shape == (10, 1) and torch.equal(out, a * 10 + 1)
+    assert [c[0] for c in calls] == [4, 4, 2]
+    assert len({c[1] for c in calls}) == 3  # distinct draws per chunk
+    calls.clear()
+    out2 = tsyn_mod._run_chunked(fake_run, (a, b), torch.Generator().manual_seed(0), chunk=None)
+    assert calls[0][0] == 10 and torch.equal(out2, out)
+
+
+def test_megakernel_dtype_selection(pair, monkeypatch):
+    """The H100 planner at the flagship memory length (3 s prompt: 1200 ref +
+    50 text tokens): device memory admits the first rung at every batch the
+    kernel takes, a batch beyond the kernel's largest finds no fit, a small
+    budget walks down the ladder to None, and None sends the decode through
+    the int8 step path."""
+    from mamba_tts_torch.config import TTSConfig
+
+    cfg = TTSConfig().decoder.with_mamba_dims()
+    M = 1250
+    pick = tsyn_mod._megakernel_dtypes
+    for B in (1, 2, 4, 8):
+        assert pick(cfg, B, M) == ("bfloat16", "bfloat16")
+        assert pick(cfg, B, M, sampled=True) == ("bfloat16", "bfloat16")
+    assert pick(cfg, 9, M) is None  # step-decode fallback
+    assert tmk.megakernel_max_batch(cfg, M) == tmk.MEGAKERNEL_MAX_BATCH == 8
+    assert tmk.megakernel_max_batch(cfg, 64 * cfg.num_quantizers + 50) == 8
+    # a small budget walks B=1 down the ladder (324.5 / 290.9 / 280.4 MB at the
+    # default step count, the longest decode the position table allows)
+    assert pick(cfg, 1, M, budget_bytes=330 * 10 ** 6) == ("bfloat16", "bfloat16")
+    assert pick(cfg, 1, M, budget_bytes=300 * 10 ** 6) == ("int8", "bfloat16")
+    assert pick(cfg, 1, M, budget_bytes=285 * 10 ** 6) == ("int8", "int8")
+    assert pick(cfg, 1, M, budget_bytes=200 * 10 ** 6) is None
+
+    # no fit -> the int8 step decode, not the megakernel
+    _, tsyn = _synths(pair, "megakernel")
+    monkeypatch.setattr(tsyn_mod, "_megakernel_dtypes", lambda *a, **k: None)
+    monkeypatch.setattr(tsyn_mod, "megakernel_greedy_decode",
+                        lambda *a, **k: pytest.fail("took the megakernel without a fit"))
+    taken = []
+    step_decode = tsyn_mod.greedy_decode_int8
+
+    def spy(*a, **k):
+        taken.append(k.get("int8_kv"))
+        return step_decode(*a, **k)
+
+    monkeypatch.setattr(tsyn_mod, "greedy_decode_int8", spy)
+    voice_codec = tsyn._encode_voice([pair["voice"]])
+    ids, mask, voice = tsyn._tensors(pair["ids"], pair["mask"], voice_codec)
+    tokens = tsyn._decode_rows((ids, mask, _t(pair["style_bert"]), voice), 2, 0.0,
+                               tsyn._generator(SEED))
+    assert taken == [False] and tokens.shape == (1, 2 * T_CFG.decoder.num_quantizers)
+
+
+def test_megakernel_batch_is_chunked(pair, monkeypatch):
+    """A batch beyond ``megakernel_max_batch`` is cut into consecutive
+    megakernel calls by ``_run_chunked``; rows come back in order."""
+    _, tsyn = _synths(pair, "megakernel")
+    monkeypatch.setattr(tsyn_mod, "megakernel_max_batch", lambda *a, **k: 2)
+    sizes = []
+    decode = tsyn_mod.megakernel_greedy_decode
+
+    def spy(decoder, qparams, text_hidden, *a, **k):
+        sizes.append(text_hidden.shape[0])
+        return decode(decoder, qparams, text_hidden, *a, **k)
+
+    monkeypatch.setattr(tsyn_mod, "megakernel_greedy_decode", spy)
+    voice_codec = tsyn._encode_voice([pair["voice"]] * 3)
+    texts = ["hello world", "good day", "hello world"]
+    ids, _, mask = tsyn.frontend.encode_batch(texts, pad_to=T_CFG.data.max_text_len)
+    ids, mask, voice = tsyn._tensors(ids, mask, voice_codec)
+    style = tsyn.style_encoder.embed(["fast", "slow", "fast"])
+    monkeypatch.setattr(tsyn.model, "sample_style",
+                        lambda b, generator=None: _t(pair["z"]).expand(b.shape[0], -1))
+    tokens = tsyn._decode_rows((ids, mask, style, voice), 2, 0.0, tsyn._generator(SEED))
+    assert sizes == [2, 1]
+    assert tokens.shape == (3, 2 * T_CFG.decoder.num_quantizers)
+    np.testing.assert_array_equal(tokens[0], tokens[2])  # equal rows, different chunks
+    assert (tokens[0] != tokens[1]).any()
+
+
+@pytest.mark.parametrize("what", ["mesh", "checkpoint", "no_card"])
 def test_unported_paths_raise(what):
-    if what == "megakernel":
-        with pytest.raises(NotImplementedError, match="megakernel"):
-            load_synthesizer(T_CFG, quant="megakernel", device="cpu")
-    elif what == "mesh":
+    if what == "mesh":
         with pytest.raises(NotImplementedError, match="mesh"):
             load_synthesizer(T_CFG, mesh=object(), device="cpu")
     elif what == "checkpoint":
