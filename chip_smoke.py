@@ -55,6 +55,29 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              each stage's work and each grid barrier's wait (the kernel's
              ``stage_clocks`` diagnostic); torch.profiler over the flagship
              request for the device's idle share.
+9. scan kernels — the selective-scan forward, checkpointing forward and
+             backward kernels against their plain versions at B=2, T=5,120
+             (the flagship's flattened grid), D=1,024, N=16, bf16 u/B/C, and at
+             a ragged T=5,117 with a given h0; µs per launch, plain, bound.
+10. flash kernels — forward and backward against autograd through the plain
+             materialized softmax at B=2, H=8, Tq=5,120, Tk=5,376 (a third of
+             one row's keys masked) and a ragged Tq=640, Tk=1,427; µs per
+             launch beside the plain version and scaled_dot_product_attention.
+11. forward vs decode — with the training kernels' counts set to 0: the
+             teacher-forced forward without a gradient (no-checkpoint scan and
+             flash forward) against 128 plain bf16 step-decode steps on the
+             same tokens, at full width.
+12. train CLI — ``mamba_tts_torch.train.train.main`` at its defaults (full
+             width, B=10, synthetic data): 4 steps with checkpoints, then
+             --resume to step 6; finite losses, ms per step.
+13. flagship step — B=8, 1,024 target frames (Tq=5,120) and 1,024-frame
+             voice prompts from the port's BatchPreparer: 3 optimizer steps,
+             ms per step, tokens/s, peak memory, 8 calls per step of each
+             training kernel, device idle share and top kernels; then the
+             counts of phases 11-13 must show every training kernel.
+14. card vs CPU — 2 layers at full width, one batch, deterministic: losses
+             and each component's gradient on the card against the CPU's
+             plain path; 10 steps on a fixed batch lower the codec loss.
 
 The line before the last is the card's ``name, power.limit``; the one before
 it is the kernel table; the last line is
@@ -64,8 +87,11 @@ prints no result.
 """
 import copy
 import json
+import pathlib
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -683,6 +709,435 @@ def phase_megakernel_times(torch, synth, voice, frames=1024):
     return rows, one
 
 
+# ------------------------------------------------------------------ training
+
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores (exp counted as one operation)
+SCAN_OPS = {"fwd": 7, "bwd": 26}  # f32 operations per (b, t, d, n), exps included
+TRAIN_KERNELS = ("selective_scan_fwd", "selective_scan_fwd_ckpt", "selective_scan_bwd",
+                 "flash_attention_fwd", "flash_attention_bwd")
+_SCAN_CU, _FLASH_CU = ("mamba_tts_torch/ops/csrc/selective_scan.cu",
+                       "mamba_tts_torch/ops/csrc/flash_attention.cu")
+TRAIN_SOURCES = {  # kernel -> (source, the TPU kernel it replaces)
+    "selective_scan_fwd": (_SCAN_CU, "mamba_tts_tpu/ops/pallas_scan.py:36"),
+    "selective_scan_fwd_ckpt": (_SCAN_CU, "mamba_tts_tpu/ops/pallas_scan.py:121"),
+    "selective_scan_bwd": (_SCAN_CU, "mamba_tts_tpu/ops/pallas_scan.py:160"),
+    "flash_attention_fwd": (_FLASH_CU, "mamba_tts_tpu/models/attention.py:25"),
+    "flash_attention_bwd": (_FLASH_CU, "mamba_tts_tpu/models/attention.py:25"),
+}
+
+
+def _events_ms(torch, fn):
+    """Device ms of one call of ``fn`` (CUDA events, after a synchronise)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _errs(got, want):
+    """(largest absolute error, that over the reference's largest magnitude)."""
+    d = float((got.float() - want.float()).abs().max())
+    return d, d / max(float(want.float().abs().max()), 1e-30)
+
+
+def _wrappers():
+    from mamba_tts_torch.ops import flash_attention as fa
+    from mamba_tts_torch.ops import pallas_scan as ps
+
+    return {"selective_scan_fwd": ps.selective_scan_fwd,
+            "selective_scan_fwd_ckpt": ps.selective_scan_fwd_ckpt,
+            "selective_scan_bwd": ps.selective_scan_bwd,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd}
+
+
+def _scan_inputs(torch, B, T, D, N, seed, with_h0):
+    """bf16 u/B/C and f32 dt as the Mamba block gives them: dt in the dt_proj
+    init range, A the S4D-real init -(n + 1), D = 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    u = rnd(B, T, D).bfloat16()
+    delta = torch.nn.functional.softplus(rnd(B, T, D) * 0.5 - 3.0)
+    A = -torch.arange(1, N + 1, device="cuda", dtype=torch.float32).expand(D, N).contiguous()
+    Bm, Cm = rnd(B, T, N).bfloat16(), rnd(B, T, N).bfloat16()
+    h0 = rnd(B, N, D) * 0.1 if with_h0 else None
+    return u, delta, A, Bm, Cm, torch.ones(D, device="cuda"), h0
+
+
+def phase_scan_kernels(torch, B=2, T=5120, D=1024, N=16):
+    """The three scan kernels against their plain versions at the flagship's
+    flattened grid (T = 5 x 1,024) and a ragged T with a given h0; µs per
+    launch by CUDA events.  Limits: y (bf16) within 1e-2 of its largest
+    magnitude (one bf16 ulp); h_T and ckpt (f32, another exp and summation
+    order) within 1e-4; the backward's f32 outputs within 1e-3."""
+    from mamba_tts_torch.ops import pallas_scan as ps
+
+    out = {k: {"max_abs_err": 0.0} for k in TRAIN_KERNELS[:3]}
+    for T_, with_h0 in ((T, False), (T - 3, True)):
+        u, delta, A, Bm, Cm, Dsk, h0 = _scan_inputs(torch, B, T_, D, N, seed=T_, with_h0=with_h0)
+        y, hT = ps.selective_scan_fwd(u, delta, A, Bm, Cm, Dsk, h0)
+        y2, hT2, ck = ps.selective_scan_fwd_ckpt(u, delta, A, Bm, Cm, Dsk, h0)
+        plain_fwd_ms, (y_w, hT_w, ck_w) = _events_ms(
+            torch, lambda: ps.scan_ckpt_ref(u, delta, A, Bm, Cm, Dsk, h0))
+        check(torch.equal(y, y2) and torch.equal(hT, hT2), "scan: the two forward kernels differ")
+        errs = {"y": _errs(y, y_w), "h_T": _errs(hT, hT_w), "ckpt": _errs(ck, ck_w)}
+        g = torch.Generator(device="cuda").manual_seed(1)
+        dy = torch.randn((B, T_, D), generator=g, device="cuda")
+        dhT = torch.randn((B, N, D), generator=g, device="cuda")
+        got = ps.selective_scan_bwd(u, delta, A, Bm, Cm, ck, dy, dhT)
+        plain_bwd_ms, want = _events_ms(torch, lambda: ps.scan_bwd_ref(u, delta, A, Bm, Cm, ck, dy, dhT))
+        for name, a, b in zip("du ddt dB dC dA_b dh0".split(), got, want):
+            errs[name] = _errs(a, b)
+        emit({"phase": "scan_kernels", "B": B, "T": T_, "D": D, "N": N, "h0": with_h0,
+              "abs_and_rel_errors": errs, "limits": {"y": 1e-2, "h_T": 1e-4, "ckpt": 1e-4, "grads": 1e-3}})
+        check(errs["y"][1] <= 1e-2, f"scan y: relative error {errs['y'][1]}")
+        for k in ("h_T", "ckpt"):
+            check(errs[k][1] <= 1e-4, f"scan {k}: relative error {errs[k][1]}")
+        for k in "du ddt dB dC dA_b dh0".split():
+            check(errs[k][1] <= 1e-3, f"scan backward {k}: relative error {errs[k][1]}")
+        fwd_err = max(errs[k][0] for k in ("y", "h_T"))
+        out["selective_scan_fwd"]["max_abs_err"] = max(out["selective_scan_fwd"]["max_abs_err"], fwd_err)
+        out["selective_scan_fwd_ckpt"]["max_abs_err"] = max(
+            out["selective_scan_fwd_ckpt"]["max_abs_err"], fwd_err, errs["ckpt"][0])
+        out["selective_scan_bwd"]["max_abs_err"] = max(
+            out["selective_scan_bwd"]["max_abs_err"], *(errs[k][0] for k in "du ddt dB dC dA_b dh0".split()))
+        if T_ != T:
+            continue
+        nc = -(-T // ps.CHUNK)
+        io = B * T * D * (2 + 4) + 2 * B * T * N * 2 + D * N * 4 + D * 4  # u, dt, B, C, A, D
+        nbytes = {"selective_scan_fwd": io + B * T * D * 2 + B * N * D * 4,
+                  "selective_scan_fwd_ckpt": io + B * T * D * 2 + B * N * D * 4 + B * nc * N * D * 4,
+                  "selective_scan_bwd": io - D * 4 + B * nc * N * D * 4 + B * T * D * 4 + B * N * D * 4
+                  + 2 * B * T * D * 4 + 2 * B * T * N * 4 + 2 * B * N * D * 4}
+        ops = {"selective_scan_fwd": SCAN_OPS["fwd"], "selective_scan_fwd_ckpt": SCAN_OPS["fwd"],
+               "selective_scan_bwd": SCAN_OPS["bwd"]}
+        times = {
+            "selective_scan_fwd": device_ms(torch, lambda i: ps.selective_scan_fwd(u, delta, A, Bm, Cm, Dsk), 20),
+            "selective_scan_fwd_ckpt": device_ms(
+                torch, lambda i: ps.selective_scan_fwd_ckpt(u, delta, A, Bm, Cm, Dsk), 20),
+            "selective_scan_bwd": device_ms(
+                torch, lambda i: ps.selective_scan_bwd(u, delta, A, Bm, Cm, ck, dy, dhT), 10)}
+        plain = {"selective_scan_fwd": plain_fwd_ms, "selective_scan_fwd_ckpt": plain_fwd_ms,
+                 "selective_scan_bwd": plain_bwd_ms}
+        for k in times:
+            by_bytes = nbytes[k] / HBM_BYTES_PER_S * 1e3
+            by_ops = ops[k] * B * T * D * N / F32_OPS_PER_S * 1e3
+            out[k].update(ms=times[k], plain_ms=plain[k], bound_ms=max(by_bytes, by_ops),
+                          bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=None,
+                          bytes=nbytes[k], exps=(1 if "fwd" in k else 2) * B * T * D * N,
+                          at=f"B={B}, T={T}, D={D}, N={N}, bf16 u/B/C, f32 dt")
+        emit({"phase": "scan_kernels", "times_ms": times, "plain_ms": plain,
+              "bound_ms": {k: out[k]["bound_ms"] for k in times}})
+    return out
+
+
+def phase_flash_kernels(torch):
+    """The flash kernels against autograd through the plain materialized
+    softmax at the flagship training step's shapes (B=2 of its 8 rows) and a
+    ragged shape, a third of one row's keys masked; µs per launch forward and
+    backward beside the plain version and ``scaled_dot_product_attention``.
+    Limit 2e-2 of each output's largest magnitude: the plain version rounds
+    the probabilities and their gradient to bf16 where the kernels keep f32,
+    and both round outputs to bf16."""
+    import torch.nn.functional as F
+
+    from mamba_tts_torch.ops import flash_attention as fa
+
+    out = {k: {"max_abs_err": 0.0} for k in TRAIN_KERNELS[3:]}
+    scale = 64 ** -0.5
+    for B, H, Tq, Tk in ((2, 8, 5120, 5376), (2, 8, 640, 1427)):
+        g = torch.Generator(device="cuda").manual_seed(Tq + Tk)
+        q, K, V, dO = (torch.randn((B, H, T, 64), generator=g, device="cuda").bfloat16()
+                       for T in (Tq, Tk, Tk, Tq))
+        mask = torch.ones((B, Tk), dtype=torch.bool, device="cuda")
+        mask[0, Tk // 3: 2 * Tk // 3] = False
+
+        def run(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, K, V)]
+            o = fn(*leaves, mask, scale)
+            o.backward(dO)
+            return [o.detach()] + [t.grad for t in leaves]
+
+        got = run(fa.flash_attention)
+        want = run(fa.flash_attention_ref)
+        errs = {n: _errs(a, b) for n, a, b in zip(("O", "dq", "dK", "dV"), got, want)}
+        emit({"phase": "flash_kernels", "B": B, "H": H, "Tq": Tq, "Tk": Tk,
+              "abs_and_rel_errors": errs, "limit": 2e-2})
+        for n, (_, rel) in errs.items():
+            check(rel <= 2e-2, f"flash {n} at Tq={Tq}, Tk={Tk}: relative error {rel}")
+        out["flash_attention_fwd"]["max_abs_err"] = max(out["flash_attention_fwd"]["max_abs_err"], errs["O"][0])
+        out["flash_attention_bwd"]["max_abs_err"] = max(
+            out["flash_attention_bwd"]["max_abs_err"], *(errs[n][0] for n in ("dq", "dK", "dV")))
+        if Tq != 5120:
+            continue
+        O, lse = fa.flash_attention_fwd(q, K, V, mask, scale)
+        fwd_ms = device_ms(torch, lambda i: fa.flash_attention_fwd(q, K, V, mask, scale), 5)
+        bwd_ms = device_ms(torch, lambda i: fa.flash_attention_bwd(q, K, V, mask, O, lse, dO, scale), 3)
+        plain_fwd_ms, _ = _events_ms(torch, lambda: fa.flash_attention_ref(q, K, V, mask, scale))
+        leaves = [t.detach().clone().requires_grad_() for t in (q, K, V)]
+        ref = fa.flash_attention_ref(*leaves, mask, scale)
+        plain_bwd_ms, _ = _events_ms(torch, lambda: torch.autograd.grad(ref, leaves, dO, retain_graph=True))
+        del ref
+        bias_mask = mask[:, None, None, :]
+        lib_fwd_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+            q, K, V, attn_mask=bias_mask, scale=scale), 5)
+        lib_leaves = [t.detach().clone().requires_grad_() for t in (q, K, V)]
+        lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=bias_mask, scale=scale)
+        lib_bwd_ms = device_ms(torch, lambda i: torch.autograd.grad(lib_out, lib_leaves, dO,
+                                                                    retain_graph=True), 3)
+        del lib_out
+        mac = B * H * Tq * Tk * 64
+        io = 2 * (B * H * Tq * 64 + 2 * B * H * Tk * 64) + B * Tk
+        for k, ms, pms, lms, flops, nbytes in (
+                ("flash_attention_fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms, 4 * mac,
+                 io + 2 * B * H * Tq * 64 + 4 * B * H * Tq),
+                ("flash_attention_bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms, 10 * mac,
+                 io + 2 * 2 * B * H * Tq * 64 + 4 * B * H * Tq + 2 * (B * H * Tq * 64 + 2 * B * H * Tk * 64))):
+            by_ops, by_bytes = flops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            out[k].update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=max(by_ops, by_bytes),
+                          bound_by="operations" if by_ops >= by_bytes else "bytes", flops=flops,
+                          at=f"B={B}, H={H}, Tq={Tq}, Tk={Tk}, head_dim 64, bf16, a third of one row's keys masked")
+        emit({"phase": "flash_kernels", "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_fwd_ms": plain_fwd_ms,
+              "plain_bwd_ms": plain_bwd_ms, "sdpa_fwd_ms": lib_fwd_ms, "sdpa_bwd_ms": lib_bwd_ms,
+              "bound_ms": {k: out[k]["bound_ms"] for k in out}})
+    return out
+
+
+def _full_model(torch, cfg, seed=0, device="cuda"):
+    from mamba_tts_torch.models.layers import seed_init
+    from mamba_tts_torch.models.tts import MambaTTS
+
+    return seed_init(MambaTTS(cfg), seed).to(device)
+
+
+def phase_forward_vs_decode(torch, steps=128, frames=1024):
+    """The teacher-forced forward without a gradient (the no-checkpoint scan
+    kernel and the flash forward) against the plain bf16 step decode's
+    logits on the same tokens: ``steps`` greedy decode steps (>= 128 so that
+    the forward's attention takes the flash kernel), then one forward over
+    [BOS, tokens[:-1]].  Limits of the card-against-CPU decode check:
+    relative max logit error <= 3e-2, argmax agreement >= 90%."""
+    from mamba_tts_torch.config import TTSConfig
+
+    cfg = TTSConfig()
+    model = _full_model(torch, cfg).eval()
+    dec, dc = model.decoder, cfg.decoder
+    g = torch.Generator(device="cuda").manual_seed(2)
+    L = cfg.data.max_text_len
+    ids = torch.randint(1, cfg.text_encoder.vocab_size, (1, L), generator=g, device="cuda")
+    mask = torch.arange(L, device="cuda")[None] < 40
+    voice = torch.randint(2, dc.vocab_size_audio, (1, 256, dc.num_quantizers), generator=g, device="cuda")
+    with torch.no_grad():
+        th = model.encode_text(ids * mask, mask)
+        z = model.sample_style(torch.randn((1, cfg.smsd.bert_dim), generator=g, device="cuda"), g)
+        rh, rm = model.embed_voice(voice)
+        KV, mm, films = dec.project_memories(th, mask, rh, rm, z)
+        states = dec.init_states(1)
+        tok = torch.full((1, 1), dc.bos_id, dtype=torch.long, device="cuda")
+        step_logits, toks = [], []
+        for t in range(steps):
+            lg, states = dec.step_with_kv(tok, KV, mm, films, states, t, frames)
+            step_logits.append(lg[:, 0].float())
+            masked = lg[:, 0].float().clone()
+            masked[:, :dc.num_special_tokens] = -1e9
+            tok = masked.argmax(-1, keepdim=True)
+            toks.append(tok)
+        toks = torch.cat(toks, dim=1)
+        inputs = torch.cat([torch.full((1, 1), dc.bos_id, dtype=torch.long, device="cuda"),
+                            toks[:, :-1]], dim=1)
+        before = {k: w.launches for k, w in _wrappers().items()}
+        fwd = dec(inputs, th, z, mask, rh, rm, quant_ids=torch.zeros_like(inputs),
+                  pos_ids=torch.arange(steps, device="cuda")[None])[0].float()
+        after = {k: w.launches - before[k] for k, w in _wrappers().items()}
+    step_logits = torch.cat(step_logits)
+    sp = dc.num_special_tokens
+    rel = _errs(fwd[:, sp:], step_logits[:, sp:])[1]
+    agree = float((fwd[:, sp:].argmax(-1) == step_logits[:, sp:].argmax(-1)).float().mean())
+    row = {"phase": "forward_vs_decode", "steps": steps, "rel_max_logit_err": rel,
+           "argmax_agreement": agree, "limits": {"rel": 3e-2, "agree": 0.9}, "launches": after}
+    emit(row)
+    check(after["selective_scan_fwd"] == dc.n_layers and after["flash_attention_fwd"] == dc.n_layers,
+          f"teacher-forced forward: kernel launches {after}")
+    check(rel <= 3e-2, f"forward vs step decode: relative max logit error {rel}")
+    check(agree >= 0.9, f"forward vs step decode: argmax agreement {agree}")
+    return row
+
+
+def phase_train_cli(torch, tmp):
+    """``python -m mamba_tts_torch.train.train`` at the CLI's defaults (full
+    width, B = 10, synthetic 0.4 s items -> 128 frames -> Tq = 640): 4 steps
+    with a checkpoint every 2, then --resume to step 6."""
+    from mamba_tts_torch.train import train as tr
+
+    args = ["--synthetic", "--checkpoint_every", "2", "--checkpoint_dir", str(tmp / "ck"),
+            "--log_file", str(tmp / "train.jsonl")]
+    t0 = time.perf_counter()
+    first = tr.main(args + ["--max_steps", "4"])
+    t1 = time.perf_counter()
+    second = tr.main(args + ["--max_steps", "6", "--resume"])
+    t2 = time.perf_counter()
+    losses = [h[k] for run in (first, second) for h in run["history"] for k in h if k != "step"]
+    import math
+
+    check(all(math.isfinite(v) for v in losses), "trainer CLI: a non-finite loss")
+    check((first["start_step"], first["step"], second["start_step"], second["step"]) == (0, 4, 4, 6),
+          f"trainer CLI steps: {first['start_step']}->{first['step']}, resume "
+          f"{second['start_step']}->{second['step']}")
+    check((tmp / "ck" / "4" / "state.pt").is_file() and (tmp / "ck" / "6" / "state.pt").is_file(),
+          "trainer CLI: checkpoints 4 and 6 missing")
+    row = {"phase": "train_cli", "ms_per_step": first["ms_per_step"],
+           "resumed_ms_per_step": second["ms_per_step"], "wall_seconds": [t1 - t0, t2 - t1],
+           "loss_total": [h["loss_total"] for run in (first, second) for h in run["history"]]}
+    emit(row)
+    return row
+
+
+def phase_flagship_step(torch, tmp, steps=3):
+    """Flagship-length training steps: B = 8, 1,024 target frames (Tq = 5,120)
+    and 1,024-frame voice prompts (Tk = 5 x 1,024 + 256), from the port's
+    BatchPreparer over 12.8 s synthetic items; ms per step, target tokens per
+    second, peak memory, calls per step of each training kernel, and the
+    device's idle share and top kernels over one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.data.dataset import VccmTTSDataset, make_synthetic_dataset
+    from mamba_tts_torch.train import state as state_lib
+    from mamba_tts_torch.train import train as tr
+    from mamba_tts_torch.train.pipeline import BatchPreparer
+
+    cfg = TTSConfig()
+    B = 8
+    csv_path, tar_path = make_synthetic_dataset(str(tmp / "flagship"), n_items=B, seconds=12.8)
+    inputs, target_wav = next(VccmTTSDataset(csv_path, tar_path, seed=0).batches(B, seed=0))
+    batch = tr.batch_to_device(BatchPreparer(cfg, device="cuda")(inputs, target_wav), torch.device("cuda"))
+    Q = cfg.decoder.num_quantizers
+    check(tuple(batch["target_codec"].shape) == (B, 1024, Q) and tuple(batch["voice_codec"].shape) == (B, 1024, Q),
+          f"flagship batch: target {tuple(batch['target_codec'].shape)}, voice {tuple(batch['voice_codec'].shape)}")
+    model = _full_model(torch, cfg)
+    params = dict(model.named_parameters())
+    tx = state_lib.make_optimizer(cfg.train.lr, cfg.train.grad_clip_norm)
+    st = state_lib.create_train_state(params, tx)
+    step = tr.make_train_step(model, tx)
+    st, _ = step(st, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: w.launches for k, w in _wrappers().items()}
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        st, lo = step(st, batch)
+        losses.append({k: float(v) for k, v in lo.items()})
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    per_step = {k: (w.launches - before[k]) / steps for k, w in _wrappers().items()}
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        st, _ = step(st, batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    ours = [e for e in kernels if re.search(
+        r"::(scan_fwd|scan_bwd|flash_fwd|flash_bwd_dkdv|flash_bwd_dq|flash_bwd_delta)\b", e.key)]
+    tokens = B * 1024 * Q
+    row = {"phase": "flagship_step", "B": B, "Tq": 1024 * Q, "Tk": 1024 * Q + cfg.data.max_text_len,
+           "ms_per_step": wall * 1e3, "target_tokens_per_s": tokens / wall,
+           "max_memory_allocated_gb": peak / 1e9, "kernel_calls_per_step": per_step,
+           "profiled_step_ms": prof_wall_ms, "device_busy_ms": busy_ms or None,
+           "device_idle_share": 1 - busy_ms / prof_wall_ms if busy_ms else None,
+           "losses": losses,
+           "top_kernels": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3, "calls": e.count}
+                           for e in top],
+           "training_kernels_us_per_call": {e.key[:60]: dev_us(e) / e.count for e in ours}}
+    emit(row)
+    import math
+
+    check(all(math.isfinite(v) for lo in losses for v in lo.values()), "flagship step: non-finite loss")
+    for k, n in per_step.items():
+        check(n == cfg.decoder.n_layers or k == "selective_scan_fwd",
+              f"flagship step: {n} calls of {k} per step, expected {cfg.decoder.n_layers}")
+    return row
+
+
+def phase_card_vs_cpu(torch, frames=128):
+    """One batch at full width with 2 decoder layers, deterministic: the card
+    (kernels) against the CPU (plain versions) in bf16 on the same weights
+    and the same style draw; loss relative error <= 1e-2 and each top-level
+    component's gradient within 5e-2 of its largest magnitude (bf16 rounds at
+    other points on the two sides: the kernels keep f32 probabilities and
+    states where the plain path rounds).  Then 10 steps on a fixed batch on
+    the card must lower the codec loss."""
+    import dataclasses
+
+    import numpy as np
+
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.train import state as state_lib
+    from mamba_tts_torch.train import train as tr
+
+    cfg = TTSConfig()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, n_layers=2))
+    rng = np.random.default_rng(0)
+    B, Q, L, V = 2, cfg.decoder.num_quantizers, cfg.data.max_text_len, cfg.decoder.vocab_size_audio
+    text_mask = np.arange(L)[None] < np.array([[60], [45]])
+    target = rng.integers(2, V, (B, frames, Q)).astype(np.int32)
+    target[1, 100:] = 0
+    batch = {"phoneme_ids": (rng.integers(1, cfg.text_encoder.vocab_size, (B, L)) * text_mask).astype(np.int32),
+             "text_mask": text_mask,
+             "style_bert": rng.standard_normal((B, cfg.smsd.bert_dim)).astype(np.float32),
+             "spk_embs": rng.standard_normal((B, cfg.smsd.style_dim)).astype(np.float32),
+             "target_codec": target, "target_frames": np.array([frames, 100], np.int32),
+             "voice_codec": rng.integers(2, V, (B, frames, Q)).astype(np.int32)}
+    k = torch.tensor([0, 1])
+    eps = torch.from_numpy(rng.standard_normal((B, cfg.smsd.style_dim)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = _full_model(torch, cfg, device=dev)
+        lo = model.compute_losses(tr.batch_to_device(batch, torch.device(dev)), deterministic=True,
+                                  style_k=k.to(dev), style_eps=eps.to(dev))
+        lo["loss_total"].backward()
+        grads = {c: torch.cat([p.grad.float().flatten().cpu() for p in getattr(model, c).parameters()
+                               if p.grad is not None])
+                 for c in ("text_encoder", "dur_predictor", "smsd", "decoder")}
+        out[dev] = ({n: float(v.detach()) for n, v in lo.items()}, grads)
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    loss_rel = {n: abs(l_gpu[n] - l_cpu[n]) / abs(l_cpu[n]) for n in l_cpu}
+    grad_rel = {c: _errs(g_gpu[c], g_cpu[c])[1] for c in g_cpu}
+    # a fixed batch on the card: 10 steps must lower the codec loss
+    model = _full_model(torch, cfg)
+    tx = state_lib.make_optimizer(1e-3)
+    st = state_lib.create_train_state(dict(model.named_parameters()), tx)
+    step = tr.make_train_step(model, tx)
+    b = tr.batch_to_device(batch, torch.device("cuda"))
+    codec = []
+    for _ in range(10):
+        st, lo = step(st, b)
+        codec.append(float(lo["loss_codec"]))
+    row = {"phase": "card_vs_cpu", "n_layers": 2, "frames": frames, "loss_rel_err": loss_rel,
+           "grad_rel_err": grad_rel, "limits": {"loss": 1e-2, "grad": 5e-2},
+           "fixed_batch_loss_codec": codec}
+    emit(row)
+    for n, v in loss_rel.items():
+        check(v <= 1e-2, f"card vs CPU {n}: relative error {v}")
+    for c, v in grad_rel.items():
+        check(v <= 5e-2, f"card vs CPU gradient of {c}: relative error {v}")
+    check(codec[-1] < codec[0], f"fixed batch: codec loss {codec[0]} -> {codec[-1]} did not fall")
+    return row
+
+
 def main():
     import torch
 
@@ -708,6 +1163,27 @@ def main():
     mk_worst = phase_megakernel_kernel(torch, synth_mk)
     mk_rows, mk_one = phase_megakernel_times(torch, synth_mk, voice)
     flagship = mk_rows[(1, "bfloat16", "bfloat16")]
+    del synth_mk
+    torch.cuda.empty_cache()
+
+    # training: each kernel against its plain version, then the main paths
+    # (teacher-forced forward, the trainer CLI, flagship-length steps) with
+    # the training kernels' counts set to 0 just before and read just after
+    train_rows = {**phase_scan_kernels(torch), **phase_flash_kernels(torch)}
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    phase_forward_vs_decode(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_train_cli(torch, pathlib.Path(tmp))
+        torch.cuda.empty_cache()
+        phase_flagship_step(torch, pathlib.Path(tmp))
+    train_launches = {k: w.launches for k, w in wrappers.items()}
+    emit({"phase": "training_main_path", "launches": train_launches})
+    for k, n in train_launches.items():
+        check(n > 0, f"{k} was not launched on the main path")
+    torch.cuda.empty_cache()
+    phase_card_vs_cpu(torch)
 
     b1 = [r for r in rows if r["B"] == 1]
 
@@ -729,7 +1205,10 @@ def main():
         "at": mk_one["launch"] + "; the bound reads the plan once per step (it exceeds the L2)",
         "flagship_launch_ms": flagship["launch_ms"], "flagship_us_per_step": flagship["us_per_step"],
         "flagship_bound_us_per_step": flagship["bound_us_per_step"],
-    }], "seconds": time.perf_counter() - t_start})
+    }] + [{
+        "name": k, "route": "cuda", "source": TRAIN_SOURCES[k][0], "replaces": TRAIN_SOURCES[k][1],
+        "launches": train_launches[k], **train_rows[k],
+    } for k in TRAIN_KERNELS], "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

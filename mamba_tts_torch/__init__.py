@@ -6,11 +6,16 @@ find; the JAX package stays the numerical reference.  Plain tensor code is
 PyTorch; every Pallas TPU kernel on a ported path becomes a hand-written
 Hopper kernel under ``ops/csrc/`` with a plain PyTorch version beside it.
 
-- ``ops``    : selective-scan reference/step, the int8 weight-streaming
-               matvec (CUDA kernel + plain version).
+- ``ops``    : the hand-written Hopper kernels beside their plain versions:
+               the int8 weight-streaming matvec, the decode megakernel, the
+               training selective scan (forward, checkpointing forward,
+               backward) and flash cross-attention (forward, backward).
 - ``models`` : Mamba decoder stack, text encoder, duration predictor, SMSD
-               head, BERT style-text encoder, FACodec (inference half).
+               head, BERT style-text encoder, FACodec (inference half), the
+               training losses (``MambaTTS.compute_losses``).
 - ``infer``  : int8 step decode and the ``Synthesizer`` serving entry point.
+- ``train``  : Adam with global-norm clipping, checkpoints, the batch
+               preparer and the trainer CLI; ``data`` and ``utils`` beside.
 - ``bridge`` : JAX-package parameter trees (numpy) -> port modules.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``;

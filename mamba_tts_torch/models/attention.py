@@ -9,9 +9,10 @@ Mask convention: ``memory_mask`` is True for VALID positions; invalid keys
 get an additive -1e9 before the softmax.
 
 Long queries (Tq >= 128) are the teacher-forced/training case, which the JAX
-package sends to a TPU flash-attention kernel.  Its Hopper kernel is queued
-(PERF.md kernel table, row 6), so on the card that case raises instead of
-running the plain path; CPU tensors take the plain path at any length.
+package sends to a TPU flash-attention kernel.  On the card that case goes to
+the Hopper flash kernels of ``ops/flash_attention.py`` (forward and backward);
+shorter queries, as in the decode step, and CPU tensors at any length take
+the plain materialized softmax, as the JAX package does off the TPU.
 """
 from __future__ import annotations
 
@@ -22,14 +23,13 @@ import torch.nn as nn
 
 from mamba_tts_torch.device import on_card
 from mamba_tts_torch.models.layers import Dense
+from mamba_tts_torch.ops.flash_attention import (  # noqa: F401  (mask_bias: shared helper)
+    flash_attention,
+    flash_attention_ref,
+    mask_bias,
+)
 
-NEG_INF = -1e9
 FLASH_MIN_QUERIES = 128
-
-
-def mask_bias(mask: torch.Tensor) -> torch.Tensor:
-    """(B, Tk) bool, True = valid -> (B, 1, 1, Tk) f32 additive bias."""
-    return torch.where(mask[:, None, None, :], 0.0, NEG_INF).to(torch.float32)
 
 
 class CrossAttention(nn.Module):
@@ -56,20 +56,12 @@ class CrossAttention(nn.Module):
                memory_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, Tq, d_model) queries against precomputed K/V."""
         B, Tq, _ = x.shape
-        if Tq >= FLASH_MIN_QUERIES and on_card(x):
-            raise NotImplementedError(
-                f"cross-attention with Tq={Tq} >= {FLASH_MIN_QUERIES} queries is the "
-                "teacher-forced path that the JAX package sends to the TPU flash-"
-                "attention kernel (mamba_tts_tpu/models/attention.py:25 _flash_attend); "
-                "its Hopper kernel is queued (PERF.md kernel table row 6, ROADMAP "
-                "queue 2)")
         q = self._split(self.q_proj(x))  # (B, H, Tq, hd)
         scale = self.head_dim ** -0.5
-        logits = torch.matmul(q.to(torch.float32), K.to(torch.float32).transpose(-1, -2)) * scale
-        if memory_mask is not None:
-            logits = logits + mask_bias(memory_mask)
-        probs = torch.softmax(logits, dim=-1).to(V.dtype)
-        out = torch.matmul(probs, V)
+        if Tq >= FLASH_MIN_QUERIES and on_card(x):
+            out = flash_attention(q, K, V, memory_mask, scale)
+        else:
+            out = flash_attention_ref(q, K, V, memory_mask, scale)
         out = out.transpose(1, 2).reshape(B, Tq, self.d_model)
         return self.o_proj(out)
 

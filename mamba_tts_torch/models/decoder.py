@@ -13,9 +13,10 @@ flattened quantizer-major with ``pos = tile(arange(T), Q)`` and
 
 :func:`greedy_decode` projects every layer's memory K/V and FiLM parameters
 once, then loops over the Q*F steps in Python over device tensors with no
-host synchronisation per token.  ``forward`` (teacher forcing) runs only on
-CPU tensors in this slice: its scan and long-query attention have no Hopper
-kernels yet and raise on the card.
+host synchronisation per token.  ``forward`` (teacher forcing, training) runs
+its scans and long-query attention through the Hopper kernels on the card;
+with ``DecoderConfig.remat`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``), as ``nn.remat`` does in the JAX package.
 
 Mask convention: True = VALID.
 """
@@ -26,6 +27,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from mamba_tts_torch.config import DecoderConfig
 from mamba_tts_torch.models.attention import CrossAttention
@@ -136,7 +138,12 @@ class MambaTTSDecoder(nn.Module):
         memory, memory_mask = self._build_memory(text_hidden, text_mask, ref_hidden, ref_mask)
         x = self.token_embed(flat) + self.pos_embed(pos_ids) + self.quant_embed(quant_ids)
         for layer in self.layers:
-            x, _ = layer(x, memory, z_style, memory_mask)
+            if self.cfg.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(
+                    lambda x, layer=layer: layer(x, memory, z_style, memory_mask)[0], x,
+                    use_reentrant=False)
+            else:
+                x, _ = layer(x, memory, z_style, memory_mask)
         return self.head(self.norm_out(x).to(torch.float32))
 
     def _embed_step(self, last_token: torch.Tensor, step: int, frames_per_stream: int):

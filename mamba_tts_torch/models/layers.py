@@ -109,6 +109,21 @@ class LayerNorm(nn.Module):
             nn.init.zeros_(self.bias)
 
 
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``nn.Dropout``: keep each element with probability ``1 - rate`` and
+    scale the kept ones by ``1 / (1 - rate)``, in ``x``'s dtype.  The mask
+    is drawn from ``generator`` (on ``x``'s device); ``F.dropout`` takes no
+    generator, so training randomness stays explicit."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def seed_init(module: nn.Module, seed: int) -> nn.Module:
     """Seeded random init of every layer of ``module`` that defines
     ``init_weights`` (children before parents, so a parent's special init

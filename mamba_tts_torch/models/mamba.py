@@ -7,8 +7,9 @@
     y = scan_out * SiLU(z) -> out_proj
 
 Decode carries :class:`MambaState` = (conv ring buffer, SSM state), O(1) per
-step.  ``forward`` (the full-sequence path) runs only on CPU tensors in this
-slice: on the card the scan raises until its Hopper kernel is ported.
+step.  ``forward`` (the full-sequence path, with gradients in training) runs
+its scan through the Hopper scan kernels on the card and the plain scan on
+the CPU.
 
 State layout:
     conv: (B, d_conv-1, d_inner)  last inputs of the conv window, compute dtype

@@ -1,5 +1,5 @@
 """SMSD — style mixture density head — counterpart of
-``mamba_tts_tpu/models/smsd.py`` (inference half).
+``mamba_tts_tpu/models/smsd.py``.
 
 A Gaussian mixture-density network over frozen style-text ([CLS])
 embeddings.  All four variance modes:
@@ -9,13 +9,16 @@ embeddings.  All four variance modes:
   - "diagonal":  per-component, per-dimension sigma
   - "fixed":     constant std ``fixed_std``
 
-Sampling: k ~ Categorical(pi), y = mu_k + sigma_k * eps.  ``torch.Generator``
-draws cannot reproduce ``jax.random``, so :func:`sample_mixture` also takes
-``k`` and ``eps`` directly; the parity tests feed both packages the same
-noise that way.
+Training objective: the GMM negative log-likelihood (:func:`mixture_nll_loss`,
+:meth:`SMSD.loss`), with dropout in the MDN and ``NoiseNet``'s noise on the
+variance head when ``deterministic=False``.  Sampling: k ~ Categorical(pi),
+y = mu_k + sigma_k * eps.  ``torch.Generator`` draws cannot reproduce
+``jax.random``, so :func:`sample_mixture` also takes ``k`` and ``eps``
+directly; the parity tests feed both packages the same noise that way.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -23,12 +26,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mamba_tts_torch.config import SMSDConfig
-from mamba_tts_torch.models.layers import Dense, LayerNorm
+from mamba_tts_torch.models.layers import Dense, LayerNorm, dropout
 
 
 class NoiseNet(nn.Module):
-    """Learnable noise perturbation on the variance head; the identity at
-    inference.  Holds the ``noise_scale`` parameter of the trained tree."""
+    """Learnable noise perturbation on the variance head: ``x + noise_scale *
+    eps`` in training, the identity at inference."""
 
     def __init__(self, noise_scale_init: float = 0.1):
         super().__init__()
@@ -39,8 +42,14 @@ class NoiseNet(nn.Module):
         with torch.no_grad():
             self.noise_scale.fill_(self.init_value)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if deterministic:
+            return x
+        if generator is None:
+            raise ValueError("NoiseNet in training needs a torch.Generator")
+        eps = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        return x + self.noise_scale * eps
 
 
 _SIGMA_WIDTH = {
@@ -68,22 +77,54 @@ class MDNHead(nn.Module):
             self.sigma_head = Dense(c.hidden_dim, _SIGMA_WIDTH[c.variance_mode](K, d))
             self.noise_net = NoiseNet(c.noise_scale)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         c = self.cfg
         B = x.shape[0]
         K, d = c.num_mixtures, c.style_dim
         h = self.ln(x.to(torch.float32))
-        h = F.relu(self.fc2(F.relu(self.fc1(h))))
+        h = dropout(F.relu(self.fc1(h)), c.dropout, deterministic, generator)
+        h = dropout(F.relu(self.fc2(h)), c.dropout, deterministic, generator)
         pi = torch.softmax(self.pi_head(h), dim=-1)
         mu = self.mu_head(h).reshape(B, K, d)
         if c.variance_mode == "fixed":
             return pi, mu, torch.full((B,), c.fixed_std, dtype=torch.float32, device=x.device)
-        sigma = F.softplus(self.noise_net(self.sigma_head(h)))
+        sigma = F.softplus(self.noise_net(self.sigma_head(h), deterministic, generator))
         if c.variance_mode == "isotropic_across_clusters":
             sigma = sigma[:, 0]
         elif c.variance_mode == "diagonal":
             sigma = sigma.reshape(B, K, d)
         return pi, mu, sigma
+
+
+def mixture_nll_loss(y_true: torch.Tensor, pi: torch.Tensor, mu: torch.Tensor,
+                     sigma: torch.Tensor, variance_mode: str = "isotropic_across_clusters",
+                     fixed_variance: float = 0.01) -> torch.Tensor:
+    """Negative log-likelihood of a Gaussian mixture, mean over the batch.
+
+    y_true (B, d); pi (B, K); mu (B, K, d); sigma (B,) | (B, K) | (B, K, d)
+    by mode; "fixed" uses the variance ``fixed_variance``."""
+    y_true, mu = y_true.to(torch.float32), mu.to(torch.float32)
+    B, K, d = mu.shape
+    diff2 = (y_true[:, None, :] - mu) ** 2  # (B, K, d)
+    log2pi = math.log(2.0 * math.pi)
+    if variance_mode == "isotropic_across_clusters":
+        var = (sigma.to(torch.float32) ** 2)[:, None]
+        logp = -0.5 * d * log2pi - 0.5 * d * torch.log(var) - 0.5 * diff2.sum(-1) / var
+    elif variance_mode == "isotropic":
+        var = sigma.to(torch.float32) ** 2
+        logp = -0.5 * d * log2pi - 0.5 * d * torch.log(var) - 0.5 * diff2.sum(-1) / var
+    elif variance_mode == "diagonal":
+        var = sigma.to(torch.float32) ** 2
+        logp = -0.5 * d * log2pi - 0.5 * torch.log(var).sum(-1) - 0.5 * (diff2 / var).sum(-1)
+    elif variance_mode == "fixed":
+        var = fixed_variance
+        logp = -0.5 * d * log2pi - 0.5 * d * math.log(var) - 0.5 * diff2.sum(-1) / var
+    else:
+        raise ValueError(f"unknown variance_mode: {variance_mode}")
+    log_weighted = torch.log(pi + 1e-8) + logp  # (B, K)
+    return -torch.logsumexp(log_weighted, dim=1).mean()
 
 
 def sample_mixture(
@@ -127,8 +168,15 @@ class SMSD(nn.Module):
         self.cfg = cfg
         self.mdn_head = MDNHead(cfg)
 
-    def forward(self, x_bert: torch.Tensor):
-        return self.mdn_head(x_bert)
+    def forward(self, x_bert: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        return self.mdn_head(x_bert, deterministic, generator)
+
+    def loss(self, x_bert: torch.Tensor, y_true: torch.Tensor, deterministic: bool = False,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        pi, mu, sigma = self.mdn_head(x_bert, deterministic, generator)
+        return mixture_nll_loss(y_true, pi, mu, sigma, self.cfg.variance_mode,
+                                self.cfg.fixed_variance)
 
     def sample(self, x_bert: torch.Tensor, generator: Optional[torch.Generator] = None,
                k: Optional[torch.Tensor] = None, eps: Optional[torch.Tensor] = None):

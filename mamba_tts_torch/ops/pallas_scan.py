@@ -1,0 +1,275 @@
+"""Selective scan for training: the Hopper kernels, their plain versions and
+the autograd binding.
+
+Counterpart of ``mamba_tts_tpu/ops/pallas_scan.py`` (the name is kept so a
+reader finds the TPU kernels this module replaces).  Three kernels of
+``csrc/selective_scan.cu``, each behind a wrapper that counts its launches:
+
+- :func:`selective_scan_fwd`      — forward without checkpoints (replaces
+  ``_scan_kernel``, ``pallas_scan.py:36``): the no-gradient forward.
+- :func:`selective_scan_fwd_ckpt` — forward that also writes the chunk-start
+  states (replaces ``_scan_kernel_ckpt``, ``:121``): every training forward.
+- :func:`selective_scan_bwd`      — the reverse adjoint scan (replaces
+  ``_scan_bwd_kernel``, ``:160``): every training backward.
+
+:class:`SelectiveScanFn` joins the last two as ``custom_vjp`` does
+(``:306-356``); :func:`selective_scan_pallas` picks the plain forward kernel
+when no gradient is needed.  The plain versions :func:`scan_ckpt_ref` and
+:func:`scan_bwd_ref` compute the same outputs in the kernels' layouts; the
+tests and ``chip_smoke.py`` hold the kernels to them.  Every wrapper launches
+its kernel for CUDA tensors or raises; nothing here falls back.
+
+Layouts: u, delta (B, T, D); A (D, N); B, C (B, T, N); D (D,); states
+(B, N, D) f32; ckpt (B, ceil(T / chunk), N, D) f32, ``ckpt[:, 0] == h0``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+CHUNK = 64  # time steps between checkpoints (the JAX package's default)
+SLICE = 16  # channels per block of the kernels: dB/dC partials per slice
+STATE_SIZES = (2, 4, 8, 16)  # d_state values the kernels take
+MAX_SMEM_BYTES = 232_448  # dynamic shared memory one H100 block may use
+
+
+def _f32(*ts):
+    return [None if t is None else t.to(torch.float32) for t in ts]
+
+
+def scan_ckpt_ref(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK):
+    """Plain forward with checkpoints: (y in ``u.dtype``, h_T f32, ckpt f32)."""
+    out_dtype = u.dtype
+    u, delta, B, C, D, h0 = _f32(u, delta, B, C, D, h0)
+    A_nd = A.to(torch.float32).T
+    Bz, T, Dm = u.shape
+    h = torch.zeros((Bz, A_nd.shape[0], Dm), dtype=torch.float32, device=u.device) \
+        if h0 is None else h0
+    ckpt, ys = [], []
+    for t in range(T):
+        if t % chunk == 0:
+            ckpt.append(h)
+        d_t = delta[:, t]
+        h = torch.exp(d_t[:, None, :] * A_nd[None]) * h + (d_t * u[:, t])[:, None, :] * B[:, t, :, None]
+        ys.append(torch.einsum("bnd,bn->bd", h, C[:, t]))
+    y = torch.stack(ys, dim=1) + u * D[None, None, :]
+    return y.to(out_dtype), h, torch.stack(ckpt, dim=1)
+
+
+def scan_bwd_ref(u, delta, A, B, C, ckpt, dy, dhT, chunk: int = CHUNK):
+    """Plain backward in the kernel's layout, written as the reverse
+    recurrence: recompute each chunk's states from ``ckpt``, then
+    ``hhat_t = dy_t C_t + a_{t+1} hhat_{t+1}``.  Returns (du, ddt, dB, dC,
+    dA_b, dh0), all f32; du leaves out the D-skip term and dA_b (B, N, D) is
+    per batch row, as the kernel gives them."""
+    u, delta, B, C, ckpt, dy, dhT = _f32(u, delta, B, C, ckpt, dy, dhT)
+    A_nd = A.to(torch.float32).T
+    Bz, T, Dm = u.shape
+    du, ddt = torch.zeros_like(u), torch.zeros_like(u)
+    dB, dC = torch.zeros_like(B), torch.zeros_like(C)
+    dA_b = torch.zeros_like(dhT)
+    g = dhT
+    for c in reversed(range(ckpt.shape[1])):
+        t0, t1 = c * chunk, min(T, (c + 1) * chunk)
+        hs = [ckpt[:, c]]
+        for t in range(t0, t1):
+            d_t = delta[:, t]
+            hs.append(torch.exp(d_t[:, None, :] * A_nd[None]) * hs[-1]
+                      + (d_t * u[:, t])[:, None, :] * B[:, t, :, None])
+        for t in reversed(range(t0, t1)):
+            d_t, u_t, Bt = delta[:, t], u[:, t], B[:, t, :, None]
+            a = torch.exp(d_t[:, None, :] * A_nd[None])
+            hhat = dy[:, t, None, :] * C[:, t, :, None] + g
+            h_prev, h_t = hs[t - t0], hs[t - t0 + 1]
+            ddt[:, t] = (hhat * (a * h_prev * A_nd[None] + u_t[:, None, :] * Bt)).sum(1)
+            du[:, t] = d_t * (hhat * Bt).sum(1)
+            dB[:, t] = (hhat * (d_t * u_t)[:, None, :]).sum(2)
+            dC[:, t] = (h_t * dy[:, t, None, :]).sum(2)
+            dA_b = dA_b + hhat * h_prev * a * d_t[:, None, :]
+            g = a * hhat
+    return du, ddt, dB, dC, dA_b, g
+
+
+# ------------------------------------------------------------------ kernels
+
+
+def _library() -> ctypes.CDLL:
+    from mamba_tts_torch.ops._build import load_library
+
+    lib = load_library("selective_scan")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.selective_scan_fwd_launch.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.selective_scan_fwd_launch.restype = i
+        lib.selective_scan_bwd_launch.argtypes = [p] * 14 + [i] * 6 + [p]
+        lib.selective_scan_bwd_launch.restype = i
+        lib.selective_scan_error_string.argtypes = [i]
+        lib.selective_scan_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def _bwd_smem_bytes(N: int, chunk: int) -> int:
+    """Mirrors ``bwd_smem`` in the CUDA source."""
+    threads = SLICE * N
+    return 4 * (chunk * threads + 5 * chunk * SLICE + 2 * chunk * N + 2 * chunk * (threads // 32) * N)
+
+
+def check_scan_args(u, delta, A, B, C, chunk, **states) -> None:
+    """Raise ``ValueError`` for anything the scan kernels do not take."""
+    if u.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"scan kernel takes bf16 or f32 u, got {u.dtype}")
+    if B.dtype != u.dtype or C.dtype != u.dtype:
+        raise ValueError(f"scan kernel takes B and C in u's dtype {u.dtype}, got {B.dtype}, {C.dtype}")
+    if delta.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"scan kernel takes f32 delta and A, got {delta.dtype}, {A.dtype}")
+    if u.dim() != 3 or delta.shape != u.shape:
+        raise ValueError(f"scan kernel takes u, delta (B, T, D); got {tuple(u.shape)}, {tuple(delta.shape)}")
+    Bz, T, Dm = u.shape
+    if A.dim() != 2 or A.shape[0] != Dm:
+        raise ValueError(f"scan kernel takes A (D, N); got {tuple(A.shape)} for D={Dm}")
+    N = A.shape[1]
+    if N not in STATE_SIZES:
+        raise ValueError(f"scan kernel takes d_state in {STATE_SIZES}, got {N}")
+    if B.shape != (Bz, T, N) or C.shape != (Bz, T, N):
+        raise ValueError(f"scan kernel takes B, C (B, T, N); got {tuple(B.shape)}, {tuple(C.shape)}")
+    if T < 1 or chunk < 1:
+        raise ValueError(f"scan kernel needs T >= 1 and chunk >= 1, got T={T}, chunk={chunk}")
+    if _bwd_smem_bytes(N, chunk) > MAX_SMEM_BYTES:
+        raise ValueError(f"scan kernel: chunk={chunk} at d_state={N} exceeds a block's shared memory")
+    for name, t in dict(u=u, delta=delta, A=A, B=B, C=C, **states).items():
+        if t is None:
+            continue
+        if not t.is_contiguous():
+            raise ValueError(f"scan kernel takes a contiguous {name}")
+        if t.device != u.device:
+            raise ValueError(f"scan kernel: {name} lies on {t.device}, u on {u.device}")
+        if name in ("D", "h0", "dhT", "ckpt", "dy") and t.dtype != torch.float32:
+            raise ValueError(f"scan kernel takes f32 {name}, got {t.dtype}")
+    for name, shape in (("D", (Dm,)), ("h0", (Bz, N, Dm)), ("dhT", (Bz, N, Dm)),
+                        ("dy", (Bz, T, Dm)), ("ckpt", (Bz, -(-T // chunk), N, Dm))):
+        t = states.get(name)
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"scan kernel takes {name} {shape}, got {tuple(t.shape)}")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{_library().selective_scan_error_string(err).decode()}")
+
+
+def _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt):
+    check_scan_args(u, delta, A, B, C, chunk, D=D, h0=h0)
+    Bz, T, Dm = u.shape
+    N = A.shape[1]
+    y = torch.empty_like(u)
+    hT = torch.empty((Bz, N, Dm), dtype=torch.float32, device=u.device)
+    ckpt = (torch.empty((Bz, -(-T // chunk), N, Dm), dtype=torch.float32, device=u.device)
+            if with_ckpt else None)
+    lib = _library()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = lib.selective_scan_fwd_launch(
+            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            D.data_ptr(), _ptr(h0), y.data_ptr(), hT.data_ptr(), _ptr(ckpt), Bz, T, Dm, N,
+            chunk, int(u.dtype == torch.bfloat16), stream)
+    _raise_on(err, "selective_scan forward kernel")
+    return y, hT, ckpt
+
+
+def selective_scan_fwd(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK):
+    """Forward kernel without checkpoints: (y in ``u.dtype``, h_T f32)."""
+    y, hT, _ = _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt=False)
+    selective_scan_fwd.launches += 1
+    return y, hT
+
+
+def selective_scan_fwd_ckpt(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK):
+    """Forward kernel with checkpoints: (y, h_T, ckpt)."""
+    out = _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt=True)
+    selective_scan_fwd_ckpt.launches += 1
+    return out
+
+
+def selective_scan_bwd(u, delta, A, B, C, ckpt, dy, dhT, chunk: int = CHUNK):
+    """Backward kernel: (du, ddt, dB, dC, dA_b, dh0) as :func:`scan_bwd_ref`.
+    The kernel writes dB and dC per 16-channel slice; they are summed here
+    over the slices in a fixed order."""
+    check_scan_args(u, delta, A, B, C, chunk, ckpt=ckpt, dy=dy, dhT=dhT)
+    Bz, T, Dm = u.shape
+    N = A.shape[1]
+    slices = -(-Dm // SLICE)
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du, ddt = torch.empty((Bz, T, Dm), **f32), torch.empty((Bz, T, Dm), **f32)
+    dBp, dCp = torch.empty((Bz, slices, T, N), **f32), torch.empty((Bz, slices, T, N), **f32)
+    dA_b, dh0 = torch.empty((Bz, N, Dm), **f32), torch.empty((Bz, N, Dm), **f32)
+    lib = _library()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = lib.selective_scan_bwd_launch(
+            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            ckpt.data_ptr(), dy.data_ptr(), dhT.data_ptr(), du.data_ptr(), ddt.data_ptr(),
+            dBp.data_ptr(), dCp.data_ptr(), dA_b.data_ptr(), dh0.data_ptr(), Bz, T, Dm, N,
+            chunk, int(u.dtype == torch.bfloat16), stream)
+    _raise_on(err, "selective_scan backward kernel")
+    selective_scan_bwd.launches += 1
+    return du, ddt, dBp.sum(dim=1), dCp.sum(dim=1), dA_b, dh0
+
+
+selective_scan_fwd.launches = 0
+selective_scan_fwd_ckpt.launches = 0
+selective_scan_bwd.launches = 0
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """The scan with the kernels as forward and backward: the checkpointing
+    forward kernel, then the backward kernel on the saved checkpoints.  The
+    D-skip terms and the casts to each input's dtype stay outside the
+    kernels, as in ``_scan_vjp_bwd`` (``pallas_scan.py:318-353``)."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, h0, chunk):
+        y, hT, ckpt = selective_scan_fwd_ckpt(u, delta, A, B, C, D, h0, chunk)
+        ctx.save_for_backward(u, delta, A, B, C, D, ckpt)
+        ctx.chunk, ctx.has_h0 = chunk, h0 is not None
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        u, delta, A, B, C, D, ckpt = ctx.saved_tensors
+        Bz, T, Dm = u.shape
+        N = A.shape[1]
+        dy = (torch.zeros((Bz, T, Dm), dtype=torch.float32, device=u.device) if dy is None
+              else dy.to(torch.float32).contiguous())
+        dhT = (torch.zeros((Bz, N, Dm), dtype=torch.float32, device=u.device) if dhT is None
+               else dhT.to(torch.float32).contiguous())
+        du, ddt, dB, dC, dA_b, dh0 = selective_scan_bwd(u, delta, A, B, C, ckpt, dy, dhT, ctx.chunk)
+        du = du + D.to(torch.float32)[None, None, :] * dy
+        dD = (dy * u.to(torch.float32)).sum(dim=(0, 1))
+        dA = dA_b.sum(dim=0).T
+        return (du.to(u.dtype), ddt.to(delta.dtype), dA.to(A.dtype), dB.to(B.dtype),
+                dC.to(C.dtype), dD.to(D.dtype), dh0 if ctx.has_h0 else None, None)
+
+
+def selective_scan_pallas(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The card's full-sequence scan: :class:`SelectiveScanFn` when a
+    gradient is needed (checkpointing forward + backward kernel), the plain
+    forward kernel otherwise, as ``custom_vjp`` runs the primal kernel
+    outside differentiation.  Makes the kernels' operands contiguous (B and C
+    arrive as views of one projection) and f32 where the kernels read f32."""
+    u, B, C = u.contiguous(), B.contiguous(), C.contiguous()
+    delta = delta.to(torch.float32).contiguous()
+    A, D = A.to(torch.float32).contiguous(), D.to(torch.float32).contiguous()
+    h0 = None if h0 is None else h0.to(torch.float32).contiguous()
+    inputs = (u, delta, A, B, C, D) + (() if h0 is None else (h0,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return SelectiveScanFn.apply(u, delta, A, B, C, D, h0, chunk)
+    return selective_scan_fwd(u, delta, A, B, C, D, h0, chunk)

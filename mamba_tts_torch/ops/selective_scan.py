@@ -5,13 +5,13 @@ Counterpart of ``mamba_tts_tpu/ops/selective_scan.py``:
     h_t = exp(delta_t * A) * h_{t-1} + (delta_t * u_t) * B_t
     y_t = <C_t, h_t> + D * u_t
 
-- :func:`selective_scan_ref`  — exact sequential scan over time; the CPU
-  reference for the queued Hopper scan kernel.
+- :func:`selective_scan_ref`  — exact sequential scan over time; the plain
+  path for CPU tensors and the reference of the Hopper scan kernels.
 - :func:`selective_scan_step` — one recurrence step for the decode loop.
-- :func:`selective_scan`      — the full-sequence dispatch.  On the card it
-  raises: the chunked TPU scan (``ops/pallas_scan.py`` ``_scan_kernel``) has
-  no Hopper kernel yet (PERF.md kernel table, row 2), and the plain loop is
-  not a stand-in for it.
+- :func:`selective_scan`      — the full-sequence dispatch: CPU tensors take
+  the plain scan (autograd through it); CUDA tensors go to the Hopper scan
+  kernels of ``ops/pallas_scan.py`` (forward, checkpointing forward and
+  backward), which launch or raise.
 
 State layout: ``h`` is (B, N, D) float32; accumulation is float32 whatever
 the input dtype.
@@ -83,14 +83,13 @@ def selective_scan_step(
 
 
 def selective_scan(u, delta, A, B, C, D, h0=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence scan used by ``MambaBlock.forward``: the plain scan for
-    CPU tensors; on the card, ``NotImplementedError`` until the Hopper scan
-    kernel is ported."""
+    """Full-sequence scan used by ``MambaBlock.forward``: the Hopper kernels
+    for CUDA tensors (:func:`~mamba_tts_torch.ops.pallas_scan.selective_scan_pallas`),
+    the plain scan for CPU tensors."""
     if on_card(u):
-        raise NotImplementedError(
-            "the full-sequence selective scan has no Hopper kernel yet: it is "
-            "the queued port of mamba_tts_tpu/ops/pallas_scan.py _scan_kernel "
-            "(PERF.md kernel table row 2, ROADMAP queue 2); the card runs only "
-            "the step decode in this slice"
-        )
+        from mamba_tts_torch.ops.pallas_scan import selective_scan_pallas
+
+        return selective_scan_pallas(u, delta, A, B, C, D, h0)
+    if u.device.type != "cpu":
+        raise ValueError(f"selective_scan: unsupported device {u.device}")
     return selective_scan_ref(u, delta, A, B, C, D, h0)

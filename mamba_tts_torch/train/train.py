@@ -1,0 +1,239 @@
+"""Training entry point — counterpart of ``mamba_tts_tpu/train/train.py``.
+
+Public flags mirror the JAX CLI (``--batch_size --lr --max_steps --w_codec
+--w_dur --w_smsd``, checkpointing and ``--resume``, ``--synthetic`` smoke
+data, metrics, tracing), plus ``--device`` (``cuda`` by default, ``cpu`` for
+the plain path) in place of the JAX package's device selection:
+
+    python -m mamba_tts_torch.train.train --synthetic --max_steps 4
+    python -m mamba_tts_torch.train.train --synthetic --device cpu \\
+        --config_json tests/smoke_config.json --max_steps 2
+
+On the card every decoder layer's selective scan and long-query
+cross-attention run through the Hopper kernels (``ops/pallas_scan.py``,
+``ops/flash_attention.py``), forward and backward.  Paths of the JAX CLI that
+are not ported raise ``NotImplementedError`` naming their ROADMAP item:
+``--mesh`` (queue 1 item 16, parallelism), ``--preprocessed_dir`` (item 17,
+offline-preprocessed data) and ``--loader grain`` (item 13's grain-style data
+loader).
+"""
+from __future__ import annotations
+
+import argparse
+import shutil
+import tempfile
+import time
+from pathlib import Path
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from mamba_tts_torch import config as config_lib
+from mamba_tts_torch.config import TTSConfig
+from mamba_tts_torch.device import resolve_device
+from mamba_tts_torch.models.layers import seed_init
+from mamba_tts_torch.models.tts import MambaTTS
+from mamba_tts_torch.train import state as state_lib
+
+_SEED_MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant: (seed, step) -> generator seed
+
+
+def build_model(cfg: TTSConfig) -> MambaTTS:
+    return MambaTTS(cfg)
+
+
+def init_params(model: MambaTTS, seed: int = 0,
+                params: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """Seeded random init of ``model`` in place, or the JAX package's params
+    tree (numpy leaves) through the weight bridge.  Returns the model's
+    parameters by name."""
+    if params is None:
+        seed_init(model, seed)
+    else:
+        from mamba_tts_torch.bridge import load_params
+
+        load_params(model, params, skip=("style_pipe",))
+    return dict(model.named_parameters())
+
+
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The generator of one train step (dropout, NoiseNet, the z_style draw):
+    a function of ``--seed`` and the step, as the JAX loop folds the step
+    into its key, so a resumed run draws what an uninterrupted one would."""
+    return torch.Generator(device=device).manual_seed((seed * _SEED_MIX + step) % 2 ** 63)
+
+
+def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """numpy batch -> tensors on ``device``: ids as int64, masks as bool,
+    features as f32."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v))
+        if t.dtype.is_floating_point:
+            t = t.to(torch.float32)
+        elif t.dtype != torch.bool:
+            t = t.long()
+        out[k] = t.to(device)
+    return out
+
+
+def make_train_step(model: MambaTTS, tx: state_lib.Optimizer, seed: int = 0):
+    """(state, batch) -> (state advanced one step, losses as 0-dim tensors).
+    The step's gradients of every parameter feed ``tx`` (a parameter the
+    graph does not reach gets a zero gradient)."""
+
+    def train_step(st: state_lib.TrainState, batch: Dict[str, torch.Tensor]):
+        device = next(iter(st.params.values())).device
+        for p in st.params.values():
+            p.grad = None
+        losses = model.compute_losses(batch, deterministic=False,
+                                      generator=step_generator(seed, st.step, device))
+        losses["loss_total"].backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for n, p in st.params.items()}
+        opt_state = tx.apply(st.params, grads, st.opt_state)
+        for p in st.params.values():
+            p.grad = None
+        return (st.replace(step=st.step + 1, opt_state=opt_state),
+                {k: v.detach() for k, v in losses.items()})
+
+    return train_step
+
+
+def _not_ported(flag: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{flag} is not ported to the PyTorch package yet "
+                               f"(ROADMAP.md queue 1 {item})")
+
+
+def main(argv: Optional[list] = None) -> Dict[str, Any]:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--batch_size", type=int, default=10)
+    parser.add_argument("--lr", type=float, default=1e-4)
+    parser.add_argument("--max_steps", type=int, default=10, help="short run for sanity check")
+    parser.add_argument("--w_codec", type=float, default=1.0)
+    parser.add_argument("--w_dur", type=float, default=0.1)
+    parser.add_argument("--w_smsd", type=float, default=0.5)
+    parser.add_argument("--csv_path", type=str, default="VccmDataset/controlspeech_train.csv")
+    parser.add_argument("--audio_root", type=str, default="TextrolSpeech_data.tar.gz")
+    parser.add_argument("--checkpoint_dir", type=str, default="checkpoints")
+    parser.add_argument("--checkpoint_every", type=int, default=100)
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--synthetic", action="store_true",
+                        help="run on a generated synthetic dataset (smoke test)")
+    parser.add_argument("--preprocessed_dir", type=str, default=None,
+                        help="offline-preprocessed data (not ported: raises)")
+    parser.add_argument("--config_json", type=str, default=None)
+    parser.add_argument("--bert_vocab", type=str, default=None,
+                        help="path to a real BERT vocab.txt for the style-text encoder; "
+                             "without it the WordPiece tokenizer uses a hash vocabulary (warns)")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="mesh shape as 'data,model' (not ported: raises)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--loader", choices=["batches", "grain"], default="batches",
+                        help="input pipeline: dataset.batches (grain is not ported: raises)")
+    parser.add_argument("--grain_workers", type=int, default=0)
+    parser.add_argument("--log_file", type=str, default=None,
+                        help="append per-step JSON metric lines to this file")
+    parser.add_argument("--tensorboard_dir", type=str, default=None)
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace of steps 2-4 here")
+    parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                        help="cuda (the Hopper kernels) or cpu (the plain PyTorch path)")
+    args = parser.parse_args(argv)
+
+    if args.mesh:
+        raise _not_ported("--mesh (dp/tp parallelism)", "item 16")
+    if args.preprocessed_dir:
+        raise _not_ported("--preprocessed_dir (offline-preprocessed data)", "item 17")
+    if args.loader == "grain":
+        raise _not_ported("--loader grain (the grain-style data loader)", "item 13")
+    device = resolve_device(args.device)
+
+    cfg = config_lib.from_json(open(args.config_json).read()) if args.config_json else TTSConfig()
+    for key in ("batch_size", "lr", "max_steps", "w_codec", "w_dur", "w_smsd"):
+        cfg = config_lib.override(cfg, f"train.{key}", getattr(args, key))
+    if args.bert_vocab:
+        cfg = config_lib.override(cfg, "style_encoder.bert_vocab", args.bert_vocab)
+
+    from mamba_tts_torch.data.dataset import VccmTTSDataset, make_synthetic_dataset
+    from mamba_tts_torch.train.pipeline import BatchPreparer
+    from mamba_tts_torch.utils.metrics import MetricsLogger
+    from mamba_tts_torch.utils.profiling import StepTimer, trace
+
+    tmp = None
+    try:
+        if args.synthetic:
+            tmp = tempfile.mkdtemp(prefix="mtts_synth_")
+            csv_path, audio_root = make_synthetic_dataset(tmp, n_items=max(8, args.batch_size * 2))
+        else:
+            csv_path, audio_root = args.csv_path, args.audio_root
+        dataset = VccmTTSDataset(csv_path, audio_root, cfg.data.sample_rate, seed=args.seed)
+        print(f"dataset: {len(dataset)} items ({dataset.skipped} skipped)")
+        preparer = BatchPreparer(cfg, device=device)
+
+        def batch_iter(epoch_seed):
+            for inputs, target_wav in dataset.batches(cfg.train.batch_size, seed=epoch_seed):
+                yield preparer(inputs, target_wav)
+
+        model = build_model(cfg)
+        init_params(model, args.seed)
+        model.to(device)
+        params = dict(model.named_parameters())
+        print(f"model: {sum(p.numel() for p in params.values()) / 1e6:.1f}M params")
+        tx = state_lib.make_optimizer(cfg.train.lr, cfg.train.grad_clip_norm)
+        train_state = state_lib.create_train_state(params, tx)
+        # the config beside the checkpoints, so that inference can configure itself
+        Path(args.checkpoint_dir).mkdir(parents=True, exist_ok=True)
+        (Path(args.checkpoint_dir) / "config.json").write_text(config_lib.to_json(cfg))
+        if args.resume:
+            train_state, restored = state_lib.restore_checkpoint(args.checkpoint_dir, train_state)
+            print("resume: " + (f"restored step {train_state.step}" if restored
+                                else "no checkpoint found"))
+
+        train_step = make_train_step(model, tx, seed=args.seed)
+        logger = MetricsLogger(log_file=args.log_file, tensorboard_dir=args.tensorboard_dir)
+        timer = StepTimer(skip_first=1)
+        step = start_step = train_state.step
+        history = []
+        t_start = time.perf_counter()
+        profile_ctx = None
+        while step < cfg.train.max_steps:
+            for batch in batch_iter(step):
+                if step >= cfg.train.max_steps:
+                    break
+                if args.profile_dir and step - start_step == 2 and profile_ctx is None:
+                    profile_ctx = trace(args.profile_dir)
+                    profile_ctx.__enter__()
+                batch = batch_to_device(batch, device)
+                with timer:
+                    train_state, losses = train_step(train_state, batch)
+                    losses = {k: float(v) for k, v in losses.items()}  # waits for the step
+                history.append({"step": step, **losses})
+                if step % cfg.train.log_every == 0:
+                    logger.log(step, losses, tokens=int(batch["target_codec"].numel()))
+                if profile_ctx is not None and step - start_step >= 4:
+                    profile_ctx.__exit__(None, None, None)
+                    profile_ctx = None
+                    print(f"profiler trace written to {args.profile_dir}")
+                step += 1
+                if step % args.checkpoint_every == 0:
+                    state_lib.save_checkpoint(args.checkpoint_dir, train_state)
+                    print(f"checkpoint saved at step {step}")
+        if profile_ctx is not None:
+            profile_ctx.__exit__(None, None, None)
+        if cfg.train.max_steps > 0 and step % args.checkpoint_every != 0:
+            state_lib.save_checkpoint(args.checkpoint_dir, train_state)
+            print(f"checkpoint saved at step {step}")
+        logger.close()
+        print(f"done: {step} steps in {time.perf_counter() - t_start:.1f}s "
+              f"(steady-state {timer.mean * 1e3:.0f} ms/step)")
+        return {"start_step": start_step, "step": step, "history": history,
+                "ms_per_step": timer.mean * 1e3}
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -15,7 +15,10 @@ from mamba_tts_torch.models.decoder import MambaTTSDecoder
 from mamba_tts_torch.models.layers import seed_init
 from mamba_tts_torch.models.mamba import MambaBlock
 from mamba_tts_torch.ops import decode_megakernel as mk
+from mamba_tts_torch.ops import flash_attention as fa
 from mamba_tts_torch.ops import int8_matvec as tq
+from mamba_tts_torch.ops import pallas_scan as ps
+from mamba_tts_torch.ops import selective_scan as ts
 
 pytestmark = pytest.mark.cuda
 
@@ -121,11 +124,146 @@ def test_decode_megakernel_rejects_what_the_kernel_does_not_take(card):
         mk._megakernel_call(cfg, plan, frames, torch.zeros((3, 1), dtype=torch.int32, device=card))
 
 
-def test_unported_full_sequence_paths_raise_on_card(card):
-    block = MambaBlock(MambaConfig(d_model=16, d_state=4), dtype=torch.float32).to(card)
-    with pytest.raises(NotImplementedError, match="pallas_scan"):
-        block(torch.zeros((1, 5, 16), device=card))
-    attn = CrossAttention(16, 4, dtype=torch.float32).to(card)
-    K = V = torch.zeros((1, 4, 7, 4), device=card)
-    with pytest.raises(NotImplementedError, match="flash"):
-        attn.attend(torch.zeros((1, 128, 16), device=card), K, V)
+def test_full_sequence_paths_launch_kernels_on_card(card):
+    """The teacher-forced Mamba forward goes through the scan kernels (the
+    plain forward kernel without a gradient, the checkpointing forward and
+    the backward kernel with one) and long-query attention through the flash
+    kernels; the plain versions are never taken for card tensors."""
+    block = seed_init(MambaBlock(MambaConfig(d_model=32, d_state=4), dtype=torch.float32), 0).to(card)
+    x = torch.randn((2, 70, 32), device=card)
+    counts = (ps.selective_scan_fwd.launches, ps.selective_scan_fwd_ckpt.launches,
+              ps.selective_scan_bwd.launches)
+    with torch.no_grad():
+        y0, _ = block(x)
+    y, _ = block(x.requires_grad_())
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (ps.selective_scan_fwd.launches, ps.selective_scan_fwd_ckpt.launches,
+            ps.selective_scan_bwd.launches) == tuple(c + 1 for c in counts)
+    torch.testing.assert_close(y0, y.detach())
+    attn = seed_init(CrossAttention(128, 2, dtype=torch.bfloat16), 0).to(card)
+    K = torch.randn((1, 2, 7, 64), device=card).bfloat16()
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    q = torch.randn((1, 128, 128), device=card, requires_grad=True)
+    attn.attend(q, K, K).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert attn.attend(q[:, :127], K, K).shape == (1, 127, 128)  # decode lengths: plain path
+    assert fa.flash_attention_fwd.launches == before[0] + 1
+
+
+def _scan_case(card, dtype, Bz, T, Dm, N, seed, with_h0=True):
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=card)
+
+    u = rnd(Bz, T, Dm).to(dtype)
+    delta = torch.nn.functional.softplus(rnd(Bz, T, Dm) - 1.0)
+    A = -torch.exp(rnd(Dm, N) * 0.5)
+    B, C = rnd(Bz, T, N).to(dtype), rnd(Bz, T, N).to(dtype)
+    D = rnd(Dm)
+    h0 = rnd(Bz, N, Dm) * 0.1 if with_h0 else None
+    return u, delta, A, B, C, D, h0
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1e-12))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,Dm,N,with_h0", [(37, 40, 4, True), (130, 64, 16, False),
+                                             (64, 24, 8, True)])
+def test_scan_kernels_match_plain_on_card(card, dtype, T, Dm, N, with_h0):
+    """Forward (with and without checkpoints) and backward kernels against
+    the plain versions on the same inputs, ragged T and channel slices.
+    Tolerances: y rounds to its dtype (1e-2 of its largest magnitude covers
+    one bf16 ulp); the f32 states and gradients differ only in summation
+    order and exp rounding (1e-4 of each output's largest magnitude)."""
+    u, delta, A, B, C, D, h0 = _scan_case(card, dtype, 2, T, Dm, N, seed=T)
+    chunk = 16
+    y_w, hT_w, ck_w = ps.scan_ckpt_ref(u, delta, A, B, C, D, h0, chunk)
+    y_tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    y, hT = ps.selective_scan_fwd(u, delta, A, B, C, D, h0, chunk)
+    y2, hT2, ck = ps.selective_scan_fwd_ckpt(u, delta, A, B, C, D, h0, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and hT.dtype == torch.float32
+    assert torch.equal(y, y2) and torch.equal(hT, hT2)
+    assert _rel(y, y_w) <= y_tol
+    assert _rel(hT, hT_w) <= 1e-4 and _rel(ck, ck_w) <= 1e-4
+    dy = torch.randn((2, T, Dm), device=card)
+    dhT = torch.randn((2, N, Dm), device=card)
+    got = ps.selective_scan_bwd(u, delta, A, B, C, ck, dy, dhT, chunk)
+    torch.cuda.synchronize()
+    want = ps.scan_bwd_ref(u, delta, A, B, C, ck_w, dy, dhT, chunk)
+    for name, g_, w_ in zip("du ddt dB dC dA_b dh0".split(), got, want):
+        assert _rel(g_, w_) <= 1e-4, name
+    again = ps.selective_scan_bwd(u, delta, A, B, C, ck, dy, dhT, chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bit-identical
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_selective_scan_fn_matches_autograd_on_card(card, with_h0):
+    """Gradients of every input through the kernels (SelectiveScanFn) against
+    autograd through the plain scan, f32 (1e-4 of each gradient's largest
+    magnitude)."""
+    args = _scan_case(card, torch.float32, 2, 75, 48, 16, seed=5, with_h0=with_h0)
+
+    def grads(fn):
+        leaves = [a.detach().clone().requires_grad_() if a is not None else None for a in args]
+        y, hT = fn(*leaves)
+        ((y * y).sum() + (hT * hT).sum()).backward()
+        return [l.grad for l in leaves if l is not None]
+
+    got = grads(lambda *a: ps.selective_scan_pallas(*a))
+    want = grads(lambda *a: ts.selective_scan_ref(*a))
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) <= 1e-4
+
+
+def _flash_case(card, Bz, H, Tq, Tk, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, K, V = (torch.randn((Bz, H, T, 64), generator=g, device=card).bfloat16()
+               for T in (Tq, Tk, Tk))
+    mask = torch.ones((Bz, Tk), dtype=torch.bool, device=card)
+    mask[0, Tk // 3: 2 * Tk // 3] = False
+    return q, K, V, mask
+
+
+@pytest.mark.parametrize("Tq,Tk", [(130, 77), (128, 256), (200, 3)])
+def test_flash_kernels_match_plain_on_card(card, Tq, Tk):
+    """O and the gradients of q, K, V through the kernels against autograd
+    through the plain materialized softmax.  The plain version rounds the
+    probabilities (and their gradient) to bf16 where the kernels keep f32,
+    and both round outputs to bf16: 2e-2 of each output's largest magnitude."""
+    q, K, V, mask = _flash_case(card, 2, 3, Tq, Tk, seed=Tq + Tk)
+    scale = 64 ** -0.5
+    dO = torch.randn((2, 3, Tq, 64), device=card).bfloat16()
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, K, V)]
+        out = fn(*leaves, mask, scale)
+        out.backward(dO)
+        return [out.detach()] + [l.grad for l in leaves]
+
+    got = run(fa.flash_attention)
+    want = run(fa.flash_attention_ref)
+    for name, g_, w_ in zip(("O", "dq", "dK", "dV"), got, want):
+        assert g_.dtype == torch.bfloat16, name
+        assert _rel(g_, w_) <= 2e-2, name
+    O, lse = fa.flash_attention_fwd(q, K, V, mask, scale)
+    assert torch.equal(O, got[0])
+    assert torch.equal(fa.flash_attention_bwd(q, K, V, mask, O, lse, dO, scale)[0],
+                       fa.flash_attention_bwd(q, K, V, mask, O, lse, dO, scale)[0])
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(card):
+    q, K, V, mask = _flash_case(card, 1, 2, 128, 9, seed=0)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q[..., :32].contiguous(), K[..., :32].contiguous(),
+                               V[..., :32].contiguous(), mask, 1.0)
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_attention_fwd(q.float(), K, V, mask, 1.0)
+    with pytest.raises(ValueError, match="memory_mask"):
+        fa.flash_attention_fwd(q, K, V, mask[:, :4], 1.0)

@@ -1,5 +1,6 @@
 """Port ops against the JAX package: selective scan, int8 quantization and
-matvec, and the dispatch that keeps CUDA tensors off the plain paths.
+matvec, and the dispatch that keeps CUDA tensors off the plain paths (scan,
+int8 matvec and flash attention).
 
 Inputs come from a seeded numpy generator and go through both packages; all
 comparisons are float32 unless a test says otherwise.  The card branch is
@@ -16,7 +17,9 @@ from mamba_tts_torch.models import attention as t_attention
 from mamba_tts_torch.config import MambaConfig
 from mamba_tts_torch.models.attention import CrossAttention
 from mamba_tts_torch.models.mamba import MambaBlock
+from mamba_tts_torch.ops import flash_attention as fa
 from mamba_tts_torch.ops import int8_matvec as tq
+from mamba_tts_torch.ops import pallas_scan as ps
 from mamba_tts_torch.ops import selective_scan as ts
 
 SCAN_TOL = 2e-4  # tests/test_pallas_scan.py:28
@@ -151,20 +154,114 @@ def test_int8_matvec_card_branch_launches_never_plain(monkeypatch):
     assert tq.int8_matvec.launches == before
 
 
-def test_scan_forward_raises_on_card(monkeypatch):
+def test_scan_forward_dispatches_to_kernels_on_card(monkeypatch):
+    """For card tensors the Mamba forward takes the scan kernels (stubs here
+    that record the call and return the plain outputs): the plain forward
+    kernel without a gradient, SelectiveScanFn (checkpointing forward, then
+    the backward kernel) with one; never the plain scan."""
     monkeypatch.setattr(ts, "on_card", lambda t: True)
+    calls = []
+
+    def fwd(*a):
+        calls.append("fwd")
+        return ps.scan_ckpt_ref(*a)[:2]
+
+    def fwd_ckpt(*a):
+        calls.append("fwd_ckpt")
+        return ps.scan_ckpt_ref(*a)
+
+    def bwd(*a):
+        calls.append("bwd")
+        return ps.scan_bwd_ref(*a)
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain scan used for a card tensor")
+
+    monkeypatch.setattr(ps, "selective_scan_fwd", fwd)
+    monkeypatch.setattr(ps, "selective_scan_fwd_ckpt", fwd_ckpt)
+    monkeypatch.setattr(ps, "selective_scan_bwd", bwd)
+    monkeypatch.setattr(ts, "selective_scan_ref", no_plain)
     block = MambaBlock(MambaConfig(d_model=16, d_state=4), dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="pallas_scan"):
-        block(torch.zeros((1, 5, 16)))
-    # the decode step has no scan kernel to wait for and stays available
+    x = torch.randn((1, 5, 16), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        block(x)
+    assert calls == ["fwd"]
+    y, _ = block(x)
+    y.sum().backward()
+    assert calls == ["fwd", "fwd_ckpt", "bwd"]
+    assert block.A_log.grad is not None and block.D.grad is not None
+    # the decode step has no full-sequence scan and keeps its plain step
     y, _ = block.step(torch.zeros((1, 1, 16)), block.init_state(1))
     assert y.shape == (1, 1, 16)
 
 
-def test_long_query_attention_raises_on_card(monkeypatch):
+@pytest.mark.parametrize("case", ["u_f16", "B_dtype", "delta_bf16", "state_3", "A_shape",
+                                  "noncontig", "h0_shape", "chunk_0", "two_devices"])
+def test_scan_kernel_rejects_unsupported_args(case):
+    """What the scan kernels do not take raises before any launch."""
+    u, delta = torch.zeros((2, 9, 32)), torch.zeros((2, 9, 32))
+    A, B, C, h0 = torch.zeros((32, 4)), torch.zeros((2, 9, 4)), torch.zeros((2, 9, 4)), None
+    chunk = 8
+    if case == "u_f16":
+        u = u.half()
+    elif case == "B_dtype":
+        B = B.bfloat16()
+    elif case == "delta_bf16":
+        delta = delta.bfloat16()
+    elif case == "state_3":
+        A, B, C = torch.zeros((32, 3)), torch.zeros((2, 9, 3)), torch.zeros((2, 9, 3))
+    elif case == "A_shape":
+        A = torch.zeros((16, 4))
+    elif case == "noncontig":
+        u = torch.zeros((2, 32, 9)).transpose(1, 2)
+    elif case == "h0_shape":
+        h0 = torch.zeros((2, 32, 4))
+    elif case == "chunk_0":
+        chunk = 0
+    elif case == "two_devices":
+        C = C.to("meta")
+    with pytest.raises(ValueError):
+        ps.selective_scan_fwd(u, delta, A, B, C, torch.zeros(32), h0, chunk)
+
+
+def test_long_query_attention_dispatches_to_flash_on_card(monkeypatch):
+    """For card tensors, Tq >= 128 goes to FlashAttentionFn (its kernels
+    stubbed here by the plain version plus a recorded call) and never to
+    the plain path; shorter queries keep the plain path, as in the JAX
+    package.  What the kernels do not take raises."""
     monkeypatch.setattr(t_attention, "on_card", lambda t: True)
-    attn = CrossAttention(16, 4, dtype=torch.float32)
-    K = V = torch.zeros((1, 4, 7, 4))
-    with pytest.raises(NotImplementedError, match="flash"):
-        attn.attend(torch.zeros((1, 128, 16)), K, V)
-    assert attn.attend(torch.zeros((1, 127, 16)), K, V).shape == (1, 127, 16)
+    calls = []
+
+    def fwd(q, K, V, mask, scale):
+        calls.append(("fwd", q.shape[2]))
+        return fa.flash_attention_ref(q, K, V, mask, scale), torch.zeros(q.shape[:3])
+
+    def bwd(q, K, V, mask, O, lse, dO, scale):
+        calls.append(("bwd", q.shape[2]))
+        leaves = [t.detach().requires_grad_() for t in (q, K, V)]
+        with torch.enable_grad():
+            fa.flash_attention_ref(*leaves, mask, scale).backward(dO)
+        return tuple(t.grad for t in leaves)
+
+    real_ref = fa.flash_attention_ref
+
+    def plain(q, *a):
+        calls.append(("plain", q.shape[2]))
+        return real_ref(q, *a)
+
+    monkeypatch.setattr(fa, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(fa, "flash_attention_bwd", bwd)
+    monkeypatch.setattr(t_attention, "flash_attention_ref", plain)
+    attn = CrossAttention(128, 2, dtype=torch.float32)
+    K = V = torch.randn((1, 2, 7, 64), generator=torch.Generator().manual_seed(1))
+    x = torch.zeros((1, 128, 128), requires_grad=True)
+    attn.attend(x, K, V).sum().backward()
+    assert calls == [("fwd", 128), ("bwd", 128)]
+    assert x.grad is not None
+    assert attn.attend(torch.zeros((1, 127, 128)), K, V).shape == (1, 127, 128)
+    assert calls[-1] == ("plain", 127)
+    small = CrossAttention(16, 4, dtype=torch.float32)  # head_dim 4: not the kernel's 64
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.check_flash_args(*(small._split(torch.zeros((1, 128, 16))),) * 3, None)
+    with pytest.raises(ValueError, match="bf16"):
+        fa.check_flash_args(torch.zeros((1, 2, 128, 64)), K.bfloat16(), V.bfloat16(), None)
