@@ -62,7 +62,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 10. flash kernels — forward and backward against autograd through the plain
              materialized softmax at B=2, H=8, Tq=5,120, Tk=5,376 (a third of
              one row's keys masked) and a ragged Tq=640, Tk=1,427; µs per
-             launch beside the plain version and scaled_dot_product_attention.
+             launch beside the plain version and scaled_dot_product_attention,
+             achieved TFLOP/s and share of the bound.
 11. forward vs decode — with the training kernels' counts set to 0: the
              teacher-forced forward without a gradient (no-checkpoint scan and
              flash forward) against 128 plain bf16 step-decode steps on the
@@ -841,9 +842,11 @@ def phase_flash_kernels(torch):
     """The flash kernels against autograd through the plain materialized
     softmax at the flagship training step's shapes (B=2 of its 8 rows) and a
     ragged shape, a third of one row's keys masked; µs per launch forward and
-    backward beside the plain version and ``scaled_dot_product_attention``.
-    Limit 2e-2 of each output's largest magnitude: the plain version rounds
-    the probabilities and their gradient to bf16 where the kernels keep f32,
+    backward beside the plain version and ``scaled_dot_product_attention``,
+    with the achieved TFLOP/s and the share of the bound (the backward's
+    bound counts 5 products; its kernels execute 7).  Limit 2e-2 of each
+    output's largest magnitude: the kernels round P and dS to bf16 at the
+    tensor-core products' inputs, the plain version rounds the probabilities,
     and both round outputs to bf16."""
     import torch.nn.functional as F
 
@@ -902,10 +905,15 @@ def phase_flash_kernels(torch):
             by_ops, by_bytes = flops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             out[k].update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=max(by_ops, by_bytes),
                           bound_by="operations" if by_ops >= by_bytes else "bytes", flops=flops,
+                          tflops=flops / ms / 1e9, bound_share=max(by_ops, by_bytes) / ms,
                           at=f"B={B}, H={H}, Tq={Tq}, Tk={Tk}, head_dim 64, bf16, a third of one row's keys masked")
+        out["flash_attention_bwd"]["executed_tflops"] = 14 * mac / bwd_ms / 1e9  # 7 products
         emit({"phase": "flash_kernels", "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_fwd_ms": plain_fwd_ms,
               "plain_bwd_ms": plain_bwd_ms, "sdpa_fwd_ms": lib_fwd_ms, "sdpa_bwd_ms": lib_bwd_ms,
-              "bound_ms": {k: out[k]["bound_ms"] for k in out}})
+              "bound_ms": {k: out[k]["bound_ms"] for k in out},
+              "tflops": {k: out[k]["tflops"] for k in out},
+              "bound_share": {k: out[k]["bound_share"] for k in out},
+              "bwd_executed_tflops": out["flash_attention_bwd"]["executed_tflops"]})
     return out
 
 
@@ -1077,9 +1085,10 @@ def phase_card_vs_cpu(torch, frames=128):
     (kernels) against the CPU (plain versions) in bf16 on the same weights
     and the same style draw; loss relative error <= 1e-2 and each top-level
     component's gradient within 5e-2 of its largest magnitude (bf16 rounds at
-    other points on the two sides: the kernels keep f32 probabilities and
-    states where the plain path rounds).  Then 10 steps on a fixed batch on
-    the card must lower the codec loss."""
+    other points on the two sides: the flash kernels round P and dS at their
+    products' inputs, the scan kernels keep f32 states, where the plain path
+    rounds elsewhere).  Then 10 steps on a fixed batch on the card must lower
+    the codec loss."""
     import dataclasses
 
     import numpy as np

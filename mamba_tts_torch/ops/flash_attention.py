@@ -19,6 +19,11 @@ probabilities cast to V's dtype before the product with V.
 
 Layouts: q (B, H, Tq, 64), K and V (B, H, Tk, 64) bf16; memory_mask (B, Tk)
 bool, True = valid.
+
+:func:`flash_launch_plan` holds the host-side numbers of the kernels (tiles,
+grids, shared memory, the padded row count of the backward's workspace); the
+C launchers check what they are given against their own layouts and refuse
+anything else.
 """
 from __future__ import annotations
 
@@ -29,6 +34,10 @@ import torch
 
 NEG_INF = -1e9
 HEAD_DIM = 64
+TILE = 128  # rows of a block's tile (queries: forward, dQ; keys: dK/dV) and of a key tile
+BWD_Q_TILE = 64  # query rows per step of the dK/dV block
+STAGES = 3  # depth of each kernel's ring of tiles in shared memory
+SMEM_PER_BLOCK = 232_448  # the most shared memory an H100 block may take
 
 
 def mask_bias(mask: torch.Tensor) -> torch.Tensor:
@@ -45,15 +54,44 @@ def flash_attention_ref(q, K, V, memory_mask: Optional[torch.Tensor], scale: flo
     return torch.matmul(probs, V)
 
 
+def _smem_bytes(tile_bytes: int, vector_floats: int) -> int:
+    """A kernel's shared memory, as its C struct lays it out: the 1024-byte
+    aligned tiles, then f32 vectors, then one barrier for the resident tiles
+    and a full and an empty barrier per stage, the whole padded to 1024
+    bytes; plus 1024 for moving the start to a 1024-byte boundary."""
+    raw = tile_bytes + 4 * vector_floats + 8 * (1 + 2 * STAGES)
+    return -(-raw // 1024) * 1024 + 1024
+
+
+def flash_launch_plan(Bz: int, H: int, Tq: int, Tk: int) -> dict:
+    """Launch numbers of the forward, dK/dV and dQ kernels.  Each kernel's
+    ``grid`` is (tiles, B·H) with ``rows`` rows a tile; ``tq_pad`` is the row
+    count per (batch, head) of the backward's (2, B·H, tq_pad) f32 workspace
+    (lse · log2 e and Delta), a whole number of dQ tiles."""
+    row_bytes = 2 * HEAD_DIM
+    tile = TILE * row_bytes
+    q_tiles, k_tiles = -(-Tq // TILE), -(-Tk // TILE)
+    return {
+        "tq_pad": q_tiles * TILE,
+        "fwd": {"grid": (q_tiles, Bz * H), "rows": TILE,
+                "smem": _smem_bytes((1 + 2 * STAGES) * tile, STAGES * TILE)},
+        "dkdv": {"grid": (k_tiles, Bz * H), "rows": TILE, "q_rows": BWD_Q_TILE,
+                 "smem": _smem_bytes(2 * tile + 2 * STAGES * BWD_Q_TILE * row_bytes,
+                                     2 * STAGES * BWD_Q_TILE)},
+        "dq": {"grid": (q_tiles, Bz * H), "rows": TILE,
+               "smem": _smem_bytes((2 + 2 * STAGES) * tile, STAGES * TILE)},
+    }
+
+
 def _library() -> ctypes.CDLL:
     from mamba_tts_torch.ops._build import load_library
 
     lib = load_library("flash_attention")
     if not getattr(lib, "_argtypes_set", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_fwd_launch.argtypes = [p] * 6 + [i] * 4 + [f, p]
+        lib.flash_attention_fwd_launch.argtypes = [p] * 6 + [i] * 4 + [f] + [i] * 2 + [p]
         lib.flash_attention_fwd_launch.restype = i
-        lib.flash_attention_bwd_launch.argtypes = [p] * 11 + [i] * 4 + [f, p]
+        lib.flash_attention_bwd_launch.argtypes = [p] * 11 + [i] * 4 + [f] + [i] * 5 + [p]
         lib.flash_attention_bwd_launch.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -106,6 +144,7 @@ def flash_attention_fwd(q, K, V, memory_mask, scale: float):
     """Forward kernel: (O bf16 (B, H, Tq, 64), lse f32 (B, H, Tq))."""
     check_flash_args(q, K, V, memory_mask)
     Bz, H, Tq, _ = q.shape
+    plan = flash_launch_plan(Bz, H, Tq, K.shape[2])["fwd"]
     O = torch.empty_like(q)
     lse = torch.empty((Bz, H, Tq), dtype=torch.float32, device=q.device)
     lib = _library()
@@ -114,7 +153,8 @@ def flash_attention_fwd(q, K, V, memory_mask, scale: float):
         err = lib.flash_attention_fwd_launch(
             q.data_ptr(), K.data_ptr(), V.data_ptr(),
             None if memory_mask is None else memory_mask.data_ptr(), O.data_ptr(),
-            lse.data_ptr(), Bz, H, Tq, K.shape[2], float(scale), stream)
+            lse.data_ptr(), Bz, H, Tq, K.shape[2], float(scale), plan["grid"][0], plan["smem"],
+            stream)
     _raise_on(err, "flash_attention forward kernel")
     flash_attention_fwd.launches += 1
     return O, lse
@@ -124,7 +164,8 @@ def flash_attention_bwd(q, K, V, memory_mask, O, lse, dO, scale: float):
     """Backward kernels: (dq, dK, dV) bf16 in the layouts of q, K, V."""
     check_flash_args(q, K, V, memory_mask, O=O, lse=lse, dO=dO)
     Bz, H, Tq, _ = q.shape
-    delta = torch.empty((Bz, H, Tq), dtype=torch.float32, device=q.device)
+    plan = flash_launch_plan(Bz, H, Tq, K.shape[2])
+    work = torch.empty((2, Bz * H, plan["tq_pad"]), dtype=torch.float32, device=q.device)
     dq, dK, dV = torch.empty_like(q), torch.empty_like(K), torch.empty_like(V)
     lib = _library()
     with torch.cuda.device(q.device):
@@ -132,8 +173,10 @@ def flash_attention_bwd(q, K, V, memory_mask, O, lse, dO, scale: float):
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), K.data_ptr(), V.data_ptr(),
             None if memory_mask is None else memory_mask.data_ptr(), O.data_ptr(),
-            lse.data_ptr(), dO.data_ptr(), delta.data_ptr(), dq.data_ptr(), dK.data_ptr(),
-            dV.data_ptr(), Bz, H, Tq, K.shape[2], float(scale), stream)
+            lse.data_ptr(), dO.data_ptr(), work.data_ptr(), dq.data_ptr(), dK.data_ptr(),
+            dV.data_ptr(), Bz, H, Tq, K.shape[2], float(scale), plan["tq_pad"],
+            plan["dq"]["grid"][0], plan["dkdv"]["grid"][0], plan["dkdv"]["smem"],
+            plan["dq"]["smem"], stream)
     _raise_on(err, "flash_attention backward kernels")
     flash_attention_bwd.launches += 1
     return dq, dK, dV

@@ -231,12 +231,16 @@ def _flash_case(card, Bz, H, Tq, Tk, seed):
     return q, K, V, mask
 
 
-@pytest.mark.parametrize("Tq,Tk", [(130, 77), (128, 256), (200, 3)])
+@pytest.mark.parametrize("Tq,Tk", [(130, 77), (128, 256), (200, 3), (257, 129), (1, 300),
+                                   (384, 5376)])
 def test_flash_kernels_match_plain_on_card(card, Tq, Tk):
     """O and the gradients of q, K, V through the kernels against autograd
-    through the plain materialized softmax.  The plain version rounds the
-    probabilities (and their gradient) to bf16 where the kernels keep f32,
-    and both round outputs to bf16: 2e-2 of each output's largest magnitude."""
+    through the plain materialized softmax, at shapes on both sides of the
+    kernels' 128-row query and key tiles (and the 64-row query steps of the
+    dK/dV kernel); B = 2, H = 3 reach every (batch, head) offset.  The kernels
+    round P and dS to bf16 at the products' inputs, the plain version rounds
+    the probabilities, and both round outputs to bf16: 2e-2 of each output's
+    largest magnitude.  Reruns are bit-identical (no atomics)."""
     q, K, V, mask = _flash_case(card, 2, 3, Tq, Tk, seed=Tq + Tk)
     scale = 64 ** -0.5
     dO = torch.randn((2, 3, Tq, 64), device=card).bfloat16()
@@ -254,8 +258,10 @@ def test_flash_kernels_match_plain_on_card(card, Tq, Tk):
         assert _rel(g_, w_) <= 2e-2, name
     O, lse = fa.flash_attention_fwd(q, K, V, mask, scale)
     assert torch.equal(O, got[0])
-    assert torch.equal(fa.flash_attention_bwd(q, K, V, mask, O, lse, dO, scale)[0],
-                       fa.flash_attention_bwd(q, K, V, mask, O, lse, dO, scale)[0])
+    first = fa.flash_attention_bwd(q, K, V, mask, O, lse, dO, scale)
+    again = fa.flash_attention_bwd(q, K, V, mask, O, lse, dO, scale)
+    for name, a, b in zip(("dq", "dK", "dV"), first, again):
+        assert torch.equal(a, b), name
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(card):
