@@ -10,23 +10,35 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              limit as nvidia-smi reports them.
 2. kernels — hold ``int8_matvec`` against its plain PyTorch version on the
              card at every decode shape, B in {1, 4, 16}, with and without
-             bias (tolerance: 1 bf16 ulp relative + 1e-2 absolute); time the
-             kernel, the plain version and a ``torch.matmul`` yardstick, with
-             the weight stream cold in L2 (rotating copies) and hot.
+             bias (tolerance: 1 bf16 ulp relative + 1e-2 absolute; reruns
+             bit-identical); time the kernel with and without its fused bias,
+             the plain version and a ``torch.matmul`` yardstick, with the
+             weight stream cold in L2 (rotating copies) and hot; one
+             torch.profiler window over one call of every case must show one
+             device kernel per call.
 3. slice   — serve through ``load_synthesizer(TTSConfig(), quant=...)`` at full
              default width with seeded random weights: (a) int8_kv, 256 frames
              (3.2 s, 1,280 tokens; 1,024 frames before the megakernel requests
              joined this script); (b) int8, a batch of 4 at 256 frames;
-             (c) int8, ``register_voice`` then ``synthesize`` by name.  Each
-             request checks finite waveforms of frames*200 samples and that the
-             kernel ran exactly 6 * n_layers times per decode step, and splits
-             its wall into the decode and everything outside it.
+             (c) int8, ``register_voice`` then ``synthesize`` by name.  The
+             step loop replays a captured CUDA graph.  Each request checks
+             finite waveforms of frames*200 samples and that the kernel ran
+             exactly 6 * n_layers times per decode step (kernel executions:
+             graph replays count), and splits its wall into the decode and
+             everything outside it.
 4. parity  — 64 int8 decode steps at full width on the card against the same
              steps on the CPU (plain versions), both fed the CPU's greedy
              tokens: relative max logit error <= 3e-2, argmax agreement >= 90%
              (the int8 tolerances of tests/test_decode_megakernel.py).
-5. profile — torch.profiler over a window of decode steps: device busy share
-             and the kernels that take the time.
+   captured — request (a)'s decode from the replayed graph against the
+             eager step loop over its first 256 steps: equal tokens and logits.
+5. profile — torch.profiler over the int8_kv decode at B=1 as serving runs
+             it (condition, capture, replay) at 32 and 96 frames: wall per
+             step, device busy and idle share, device kernels per step and
+             the kernels that take the time, for the whole 480-step call and
+             for the 320 steps between the two (the per-call costs drop
+             out); the same for a window of the eager step loop, for the
+             record.
 6. megakernel kernel — the one-launch decode kernel against its plain PyTorch
              version on the card at full width (8 layers, memory 1,536), 8
              frames = 40 steps, B in {1, 2, 4} on the three dtype rungs (every
@@ -154,11 +166,24 @@ def phase_build():
           "seconds": seconds, "ptxas": ptxas, "card": nvidia_smi_line()})
 
 
+def _device_kernels(prof):
+    """The profiler's device rows: an operator's row repeats the time of the
+    kernels it launched, so only these are summed."""
+    return [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
 def phase_kernels(torch):
-    from mamba_tts_torch.ops.int8_matvec import int8_matvec, int8_matvec_ref, quantize_weight
+    from torch.profiler import ProfilerActivity, profile
+
+    from mamba_tts_torch.ops.int8_matvec import (int8_matvec, int8_matvec_ref, launch_plan,
+                                                 quantize_weight)
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    worst, rows = 0.0, []
+    worst, rows, calls = 0.0, [], []
     for name, K, N in DECODE_SHAPES:
         w_q, scale = quantize_weight(torch.randn((K, N), generator=g, device="cuda") * 0.04)
         bias = torch.randn((N,), generator=g, device="cuda") * 0.1
@@ -166,6 +191,7 @@ def phase_kernels(torch):
             x = torch.randn((B, K), generator=g, device="cuda").bfloat16()
             for b in (None, bias):
                 got = int8_matvec(x, w_q, scale, b)
+                again = int8_matvec(x, w_q, scale, b)
                 torch.cuda.synchronize()
                 want = int8_matvec_ref(x, w_q, scale, b)
                 torch.cuda.synchronize()
@@ -173,7 +199,9 @@ def phase_kernels(torch):
                 lim = want.float().abs() * 2 ** -7 + 1e-2
                 check(bool((err <= lim).all()), f"int8_matvec {name} B={B} bias={b is not None}: "
                       f"max err {float(err.max())} beyond 1 bf16 ulp + 1e-2")
+                check(torch.equal(got, again), f"int8_matvec {name} B={B}: reruns differ")
                 worst = max(worst, float(err.max()))
+                calls.append((x, w_q, scale, b))
             # timing: weights rotated through > 2x L2 (cold) and one copy (hot)
             R = max(1, -(-2 * L2_BYTES // (K * N)))
             ws = [w_q.clone() for _ in range(R)]
@@ -183,17 +211,35 @@ def phase_kernels(torch):
             iters = 200
             kernel_ms = device_ms(torch, lambda i: int8_matvec(x, ws[i % R], ss[i % R]), iters)
             kernel_hot_ms = device_ms(torch, lambda i: int8_matvec(x, w_q, scale), iters)
+            bias_ms = device_ms(torch, lambda i: int8_matvec(x, ws[i % R], ss[i % R], bias), iters)
+            bias_hot_ms = device_ms(torch, lambda i: int8_matvec(x, w_q, scale, bias), iters)
             plain_ms = device_ms(torch, lambda i: int8_matvec_ref(x, ws[i % R], ss[i % R]), iters)
             library_ms = device_ms(torch, lambda i: torch.matmul(x, w_lib[i % R_lib]), iters)
+            library_hot_ms = device_ms(torch, lambda i: torch.matmul(x, w_lib[0]), iters)
             nbytes = K * N + 4 * N + 2 * B * K + 2 * B * N
             bound_ms = max(nbytes / HBM_BYTES_PER_S, 2 * B * K * N / BF16_OPS_PER_S) * 1e3
             row = {"phase": "kernels", "name": name, "K": K, "N": N, "B": B,
+                   "plan": launch_plan(B, K, N)._asdict(),
                    "kernel_ms": kernel_ms, "kernel_l2_hot_ms": kernel_hot_ms,
-                   "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                   "kernel_bias_ms": bias_ms, "kernel_bias_l2_hot_ms": bias_hot_ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library_l2_hot_ms": library_hot_ms, "bound_ms": bound_ms,
                    "bound_by": "bytes", "max_abs_err": worst}
             rows.append(row)
             emit(row)
             del ws, ss, w_lib
+    # one device kernel per call, bias included: one profiler window over one
+    # call of every checked (shape, batch, bias) case
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for x, w_q, scale, b in calls:
+            int8_matvec(x, w_q, scale, b)
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    n_kernels = sum(e.count for e in kernels)
+    emit({"phase": "kernels", "check": "one_kernel_per_call", "calls": len(calls),
+          "device_kernels": n_kernels, "names": sorted({e.key[:60] for e in kernels})})
+    check(n_kernels == len(calls), f"int8_matvec: {n_kernels} device kernels for {len(calls)} calls")
     return rows, worst
 
 
@@ -353,15 +399,85 @@ def _tree_to(tree, device):
     return tree.to(device) if tree is not None else None
 
 
-def phase_profile(torch, synth, steps=32, frames=1024):
-    """Device busy share of the int8 step decode at B=1, and its top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from mamba_tts_torch.infer.quant_decode import quant_step_with_kv
+def phase_captured_vs_eager(torch, synth, steps=256, frames=256):
+    """Request (a)'s decode (int8_kv, B=1, 256 frames) as serving runs it,
+    from a replayed CUDA graph, against the eager step loop over its first
+    256 steps: tokens and logits must be equal."""
+    from mamba_tts_torch.infer import quant_decode as qd
 
     th, mask, rh, rm, z = _condition(torch, synth)
     dec, cfg = synth.decoder, synth.decoder.cfg
     with torch.no_grad():
+        got = qd.greedy_decode_int8(dec, synth._qparams, th, z, frames, text_mask=mask,
+                                    ref_hidden=rh, ref_mask=rm, collect_logits=True,
+                                    int8_kv=True)
+        KV, mm, films = dec.project_memories(th, mask, rh, rm, z)
+        KV = qd.quantize_kv(KV)
+        carry = qd.init_carry(cfg, 1, cfg.num_quantizers * frames, dec.dtype, th.device, True)
+        for _ in range(steps):
+            qd.decode_step_(synth._qparams, cfg, KV, mm, films, carry, frames)
+    torch.cuda.synchronize()
+    same_tokens = torch.equal(got.tokens[:, :steps], carry.tokens[:, :steps])
+    diff = float((got.logits[:, :steps] - carry.logits[:, :steps]).abs().max())
+    row = {"phase": "captured_vs_eager", "request": "a_int8_kv_3.2s", "steps": steps,
+           "tokens_equal": same_tokens, "max_abs_logit_diff": diff}
+    emit(row)
+    check(same_tokens and diff == 0.0, f"captured decode differs from the eager loop: {row}")
+    return row
+
+
+def phase_profile(torch, synth, steps=32, frames=(32, 96)):
+    """The int8_kv decode at B=1 as serving runs it (``greedy_decode_int8``:
+    condition, capture once, replay) at two lengths, so that the per-call
+    costs (conditioning, capture) drop out of the difference: wall per
+    step, device busy and idle share and device kernels per step of the
+    whole longer call and of the steps between the two; then a window of
+    the eager step loop of the earlier slices, for the record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mamba_tts_torch.infer.quant_decode import greedy_decode_int8, quant_step_with_kv
+
+    th, mask, rh, rm, z = _condition(torch, synth)
+    dec, cfg = synth.decoder, synth.decoder.cfg
+
+    def device(prof):
+        kernels = _device_kernels(prof)
+        return kernels, sum(_dev_us(e) for e in kernels) / 1e3, sum(e.count for e in kernels)
+
+    def top(kernels, n):
+        return [{"name": e.key[:80], "device_ms_per_step": _dev_us(e) / 1e3 / n,
+                 "calls_per_step": e.count / n}
+                for e in sorted(kernels, key=_dev_us, reverse=True)[:8]]
+
+    with torch.no_grad():
+        def served(f):
+            greedy_decode_int8(dec, synth._qparams, th, z, f, text_mask=mask, ref_hidden=rh,
+                               ref_mask=rm, int8_kv=True)
+            torch.cuda.synchronize()
+
+        wall, busy, count, kernels = {}, {}, {}, None
+        for f in frames:
+            served(f)
+            t0 = time.perf_counter()
+            served(f)
+            wall[f] = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                served(f)
+            kernels, busy[f], count[f] = device(prof)
+        lo, hi = frames
+        n_hi, n = cfg.num_quantizers * hi, cfg.num_quantizers * (hi - lo)
+        steady_wall, steady_busy = (wall[hi] - wall[lo]) / n, (busy[hi] - busy[lo]) / n
+        captured = {"mode": "captured", "steps": n_hi, "wall_ms_per_step": wall[hi] / n_hi,
+                    "device_busy_ms_per_step": busy[hi] / n_hi,
+                    "device_idle_share": 1 - busy[hi] / wall[hi],
+                    "kernel_launches_per_step": count[hi] / n_hi,
+                    "steady_steps": n, "steady_wall_ms_per_step": steady_wall,
+                    "steady_device_busy_ms_per_step": steady_busy,
+                    "steady_device_idle_share": 1 - steady_busy / steady_wall,
+                    "steady_kernel_launches_per_step": (count[hi] - count[lo]) / n,
+                    "top_kernels": top(kernels, n_hi)}
+        emit({"phase": "profile", **captured})
+
         KV, mm, films = dec.project_memories(th, mask, rh, rm, z)
         states = dec.init_states(1)
         tok = torch.full((1, 1), cfg.bos_id, dtype=torch.long, device="cuda")
@@ -369,7 +485,7 @@ def phase_profile(torch, synth, steps=32, frames=1024):
         def window(n, states):
             for t in range(n):
                 lg, states = quant_step_with_kv(synth._qparams, cfg, tok, KV, mm, films,
-                                                states, t, frames)
+                                                states, t, hi)
             return states
 
         states = window(4, states)
@@ -379,27 +495,16 @@ def phase_profile(torch, synth, steps=32, frames=1024):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
             window(steps, states)
             torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    # device rows only: an operator's row repeats the time of the kernels it launched
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    row = {"phase": "profile", "steps": steps, "wall_ms_per_step": wall_ms / steps,
-           "profiled_wall_ms_per_step": prof_wall_ms / steps,
-           "device_busy_ms_per_step": busy_ms / steps if busy_ms else None,
-           "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
-           "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
-           "top_kernels": [{"name": e.key[:80], "device_ms_per_step": dev_us(e) / 1e3 / steps,
-                            "calls_per_step": e.count / steps} for e in top]}
-    emit(row)
-    return row
+    kernels, busy_ms, n_kernels = device(prof)
+    eager = {"mode": "eager_step_loop", "steps": steps, "wall_ms_per_step": wall_ms / steps,
+             "device_busy_ms_per_step": busy_ms / steps,
+             "device_idle_share": 1 - busy_ms / wall_ms,
+             "kernel_launches_per_step": n_kernels / steps, "top_kernels": top(kernels, steps)}
+    emit({"phase": "profile", **eager})
+    check(captured["kernel_launches_per_step"] > 0, "the profiler saw no kernel of the replays")
+    return captured, eager
 
 
 # ---------------------------------------------------------------- megakernel
@@ -1165,6 +1270,7 @@ def main():
     rows, worst = phase_kernels(torch)
     synth, _, launches = phase_slice(torch)
     phase_parity(torch, synth)
+    phase_captured_vs_eager(torch, synth)
     phase_profile(torch, synth)
     del synth
     voice = _voice()
@@ -1205,6 +1311,9 @@ def main():
         "max_abs_err": worst, "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": "bytes", "library_ms": mean("library_ms"),
         "at": "mean per launch over the six decode shapes at B=1, weights cold in L2",
+        "l2_hot_ms": mean("kernel_l2_hot_ms"), "bias_ms": mean("kernel_bias_ms"),
+        "bias_l2_hot_ms": mean("kernel_bias_l2_hot_ms"),
+        "library_l2_hot_ms": mean("library_l2_hot_ms"),
     }, {
         "name": "decode_megakernel", "route": "cuda",
         "source": "mamba_tts_torch/ops/csrc/decode_megakernel.cu",

@@ -10,8 +10,11 @@ halves that traffic against bf16.
 - :func:`int8_matvec`     — ``y = (x @ (w_q * scale)) [+ bias]``.  For CUDA
   tensors it launches the hand-written Hopper kernel
   ``csrc/int8_matvec.cu`` (which replaces the TPU kernel at
-  ``mamba_tts_tpu/ops/int8_matvec.py:38``) or raises; for CPU tensors it runs
-  the plain version.  ``int8_matvec.launches`` counts kernel launches.
+  ``mamba_tts_tpu/ops/int8_matvec.py:38``), one launch per call with the
+  bias in its epilogue, or raises; for CPU tensors it runs the plain
+  version.  ``int8_matvec.launches`` counts kernel launches.
+- :func:`launch_plan`     — the kernel's cluster size, strip width, block
+  count and shared memory for a call, as the CUDA source lays them out.
 - :func:`int8_matvec_ref` — the plain version, mirroring the JAX package's
   ``int8_matvec_ref``.
 
@@ -21,7 +24,7 @@ at the top of ``csrc/int8_matvec.cu`` for its design.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,9 +32,22 @@ from mamba_tts_torch.device import on_card
 
 MAX_BATCH = 16
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one H100 block may use
-TARGET_BLOCKS = 2 * 132  # two blocks per SM of an H100
-STRIP = 128  # output columns per block
+TARGET_BLOCKS = 128  # about one block per SM of an H100 (132 SMs)
+MAX_CLUSTER = 8  # portable thread-block cluster size
+STRIPS = (128, 64, 32)  # output columns per block, widest first
 MIN_ROWS = 32  # least weight rows per block
+THREADS = 256  # threads per block
+
+
+class LaunchPlan(NamedTuple):
+    """One call's launch: ``cluster`` blocks split K and share a strip of
+    ``strip`` output columns; ``blocks`` in all; ``smem_bytes`` of dynamic
+    shared memory a block; ``batch_tile`` rows of x padded per block."""
+    cluster: int
+    strip: int
+    blocks: int
+    smem_bytes: int
+    batch_tile: int
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -53,21 +69,24 @@ def int8_matvec_ref(x, w_q, scale, bias=None, out_dtype=torch.bfloat16):
     return y
 
 
-def splits(K: int, N: int) -> int:
-    """K-splits per call: enough blocks (N/128 strips x splits) to cover the
-    card about twice, with at least 32 weight rows per block."""
-    strips = -(-N // STRIP)
-    return max(1, min(-(-TARGET_BLOCKS // strips), -(-K // MIN_ROWS)))
-
-
-def _smem_bytes(B: int, K: int, S: int) -> int:
-    """Dynamic shared memory of the partial kernel for (B, K, S): mirrors
-    ``smem_bytes`` and ``batch_tile`` in the CUDA source."""
+def launch_plan(B: int, K: int, N: int) -> LaunchPlan:
+    """The kernel's launch for x (B, K) and w_q (K, N): the widest strip
+    whose strips, times a full cluster, reach about one block per SM, then
+    as many K-splits (at most a portable cluster, at least 32 weight rows
+    each) as that count needs.  Mirrors ``smem_bytes`` and ``batch_tile`` in
+    ``csrc/int8_matvec.cu``, which refuses a plan it would lay out otherwise."""
+    strip = next((s for s in STRIPS if -(-N // s) * MAX_CLUSTER >= TARGET_BLOCKS), STRIPS[-1])
+    strips = -(-N // strip)
+    S = max(1, min(MAX_CLUSTER, -(-TARGET_BLOCKS // strips), -(-K // MIN_ROWS)))
     bt = next(t for t in (1, 2, 4, 8, 16) if B <= t)
-    return max(-(-K // S) * bt * 2, 8 * bt * STRIP * 4)
+    stage = max(-(-K // S) * bt * 2, THREADS // 32 * bt * strip * 4)
+    stage = -(-stage // 16) * 16
+    mine = -(-bt * strip // THREADS)  # outputs each thread of a block finishes
+    return LaunchPlan(cluster=S, strip=strip, blocks=S * strips,
+                      smem_bytes=stage + mine * S * THREADS * 4, batch_tile=bt)
 
 
-def check_kernel_args(x, w_q, scale, out_dtype) -> None:
+def check_kernel_args(x, w_q, scale, out_dtype, bias=None) -> None:
     """Raise ``ValueError`` for anything the CUDA kernel does not take."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"int8_matvec kernel takes bf16 x, got {x.dtype}")
@@ -95,10 +114,16 @@ def check_kernel_args(x, w_q, scale, out_dtype) -> None:
         raise ValueError("int8_matvec kernel takes contiguous x, w_q and scale")
     if w_q.data_ptr() % 4:
         raise ValueError("int8_matvec kernel needs a 4-byte-aligned w_q")
-    if _smem_bytes(B, K, splits(K, N)) > MAX_SMEM_BYTES:
+    if launch_plan(B, K, N).smem_bytes > MAX_SMEM_BYTES:
         raise ValueError(f"int8_matvec kernel: K={K} at B={B} exceeds the shared memory of a block")
-    if not (x.device == w_q.device == scale.device):
-        raise ValueError("int8_matvec: x, w_q and scale must lie on one device")
+    if bias is not None:
+        if bias.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"int8_matvec kernel takes an f32 or bf16 bias, got {bias.dtype}")
+        if bias.shape != (N,) or not bias.is_contiguous():
+            raise ValueError(f"int8_matvec kernel takes a contiguous ({N},) bias, "
+                             f"got {tuple(bias.shape)}")
+    if not all(t.device == x.device for t in (w_q, scale, bias) if t is not None):
+        raise ValueError("int8_matvec: x, w_q, scale and bias must lie on one device")
 
 
 def _library() -> ctypes.CDLL:
@@ -107,7 +132,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("int8_matvec")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.int8_matvec_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.int8_matvec_launch.argtypes = [p, p, p, p, i, p, i, i, i, i, i, ctypes.c_longlong, p]
         lib.int8_matvec_launch.restype = ctypes.c_int
         lib.int8_matvec_error_string.argtypes = [ctypes.c_int]
         lib.int8_matvec_error_string.restype = ctypes.c_char_p
@@ -115,17 +140,22 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x, w_q, scale) -> torch.Tensor:
+_BIAS_KIND = {torch.float32: 1, torch.bfloat16: 2}
+
+
+def _launch(x, w_q, scale, bias) -> torch.Tensor:
     B, K = x.shape
     N = w_q.shape[1]
-    S = splits(K, N)
-    y = torch.empty((B, N), dtype=torch.bfloat16, device=x.device)
-    work = torch.empty((S, B, N), dtype=torch.float32, device=x.device)
+    plan = launch_plan(B, K, N)
     lib = _library()
+    y = torch.empty((B, N), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.int8_matvec_launch(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                                     y.data_ptr(), work.data_ptr(), B, K, N, S, stream)
+        err = lib.int8_matvec_launch(
+            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            0 if bias is None else _BIAS_KIND[bias.dtype], y.data_ptr(),
+            B, K, N, plan.cluster, plan.strip, plan.smem_bytes, stream)
     if err:
         raise RuntimeError(
             f"int8_matvec kernel launch failed: {lib.int8_matvec_error_string(err).decode()}")
@@ -142,21 +172,17 @@ def int8_matvec(
 ) -> torch.Tensor:
     """y = (x @ (w_q * scale)) [+ bias], (B, N) in ``out_dtype``.
 
-    x (B, K); w_q (K, N) int8; scale (N,) f32.  The bias is added after the
-    product, in ``out_dtype``.  CUDA tensors go through the Hopper kernel
-    (bf16 x and output, B <= 16) or raise; CPU tensors take the plain
-    version.
+    x (B, K); w_q (K, N) int8; scale (N,) f32; bias (N,).  The bias is added
+    after the product, in ``out_dtype``.  CUDA tensors go through the Hopper
+    kernel (bf16 x and output, B <= 16, the bias in its epilogue: one launch
+    per call) or raise; CPU tensors take the plain version.
     """
     if on_card(x):
-        check_kernel_args(x, w_q, scale, out_dtype)
-        y = _launch(x, w_q, scale)
-    elif x.device.type == "cpu":
-        y = int8_matvec_ref(x, w_q, scale, out_dtype=out_dtype)
-    else:
-        raise ValueError(f"int8_matvec: unsupported device {x.device}")
-    if bias is not None:
-        y = y + bias.to(y.dtype)
-    return y
+        check_kernel_args(x, w_q, scale, out_dtype, bias)
+        return _launch(x, w_q, scale, bias)
+    if x.device.type == "cpu":
+        return int8_matvec_ref(x, w_q, scale, bias, out_dtype=out_dtype)
+    raise ValueError(f"int8_matvec: unsupported device {x.device}")
 
 
 int8_matvec.launches = 0

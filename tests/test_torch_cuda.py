@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from mamba_tts_torch.config import DecoderConfig, MambaConfig
+from mamba_tts_torch.infer import quant_decode as qd
 from mamba_tts_torch.infer.quant_decode import quantize_decoder_params
 from mamba_tts_torch.models.attention import CrossAttention
 from mamba_tts_torch.models.decoder import MambaTTSDecoder
@@ -30,18 +31,106 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B", [1, 4, 16])
+DECODE_SHAPES = [(512, 2048), (1024, 512), (512, 512), (512, 512), (512, 2048), (2048, 512)]
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 8, 16])
 def test_int8_matvec_kernel_matches_plain_on_card(card, B):
+    """At the six decode shapes, without a bias and with an f32 and a bf16
+    one: one launch per call, within one bf16 ulp relative plus 1e-2
+    absolute of the plain version (another summation order; the scale is
+    applied after the sum), and a rerun bit-identical."""
     g = torch.Generator(device=card).manual_seed(B)
-    x = torch.randn((B, 512), generator=g, device=card).bfloat16()
-    w_q, s = tq.quantize_weight(torch.randn((512, 2048), generator=g, device=card) * 0.05)
+    for K, N in DECODE_SHAPES:
+        x = torch.randn((B, K), generator=g, device=card).bfloat16()
+        w_q, s = tq.quantize_weight(torch.randn((K, N), generator=g, device=card) * 0.05)
+        bias = torch.randn((N,), generator=g, device=card) * 0.1
+        for b in (None, bias, bias.bfloat16()):
+            before = tq.int8_matvec.launches
+            got = tq.int8_matvec(x, w_q, s, b)
+            again = tq.int8_matvec(x, w_q, s, b)
+            torch.cuda.synchronize()
+            assert tq.int8_matvec.launches == before + 2
+            want = tq.int8_matvec_ref(x, w_q, s, b)
+            torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=1e-2)
+            assert torch.equal(got, again)
+
+
+def _small_decoder(card, seed=0):
+    cfg = DecoderConfig(codebook_size=64, d_model=128, n_layers=2, n_heads=4, d_ff=256,
+                        d_style=32, max_len=256, num_quantizers=3, dtype="bfloat16",
+                        scan_chunk=8, use_pallas=False, mamba=MambaConfig(d_model=128, d_state=8))
+    return seed_init(MambaTTSDecoder(cfg), seed).to(card).eval()
+
+
+def _decode_inputs(card, dec, B, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    d = dec.cfg.d_model
+    th = torch.randn((B, 7, d), generator=g, device=card).bfloat16()
+    z = torch.randn((B, dec.cfg.d_style), generator=g, device=card).bfloat16()
+    rh = torch.randn((B, 11, d), generator=g, device=card).bfloat16()
+    tm = torch.ones((B, 7), dtype=torch.bool, device=card)
+    tm[:, 5:] = False
+    return th, z, dict(text_mask=tm, ref_hidden=rh)
+
+
+def _eager_int8_decode(dec, qp, th, z, frames, kw, int8_kv, temperature=0.0, generator=None):
+    """The step loop of ``greedy_decode_int8`` without capture: every
+    in-place step launched eagerly on the card."""
+    cfg = dec.cfg
+    with torch.no_grad():
+        KV, mm, films = dec.project_memories(th, kw["text_mask"], kw["ref_hidden"], None, z)
+        if int8_kv:
+            KV = qd.quantize_kv(KV)
+        total = cfg.num_quantizers * frames
+        carry = qd.init_carry(cfg, th.shape[0], total, dec.dtype, th.device, True)
+        for _ in range(total):
+            qd.decode_step_(qp, cfg, KV, mm, films, carry, frames, temperature, generator)
+    return carry
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("int8_kv", [False, True])
+def test_captured_int8_decode_matches_eager_on_card(card, B, int8_kv):
+    """``greedy_decode_int8`` on the card replays a captured CUDA graph (one
+    eager warm-up step, then 4-step graphs over 3 x 9 = 27 steps, crossing
+    two quantizer boundaries); its tokens and logits equal the eager step
+    loop's, and the kernel count is one per product per step executed."""
+    dec = _small_decoder(card)
+    qp = quantize_decoder_params(dec)
+    th, z, kw = _decode_inputs(card, dec, B, seed=B)
+    frames = 9
+    total = dec.cfg.num_quantizers * frames
     before = tq.int8_matvec.launches
-    got = tq.int8_matvec(x, w_q, s)
+    got = qd.greedy_decode_int8(dec, qp, th, z, frames, collect_logits=True, int8_kv=int8_kv,
+                                **kw)
     torch.cuda.synchronize()
-    assert tq.int8_matvec.launches == before + 1
-    want = tq.int8_matvec_ref(x, w_q, s)
-    # one bf16 ulp relative plus 1e-2 absolute, for summation order
-    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=1e-2)
+    assert tq.int8_matvec.launches - before == 6 * dec.cfg.n_layers * total
+    want = _eager_int8_decode(dec, qp, th, z, frames, kw, int8_kv)
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.logits, want.logits)
+
+
+def test_captured_sampled_int8_decode_on_card(card):
+    """Sampled decode (temperature 0.8) is captured too, with the request's
+    generator registered to the graph: the same seed repeats, another seed
+    differs, and the replays draw what the eager loop draws."""
+    dec = _small_decoder(card)
+    qp = quantize_decoder_params(dec)
+    th, z, kw = _decode_inputs(card, dec, 2, seed=5)
+    frames = 9
+
+    def run(seed):
+        g = torch.Generator(device=card).manual_seed(seed)
+        return qd.greedy_decode_int8(dec, qp, th, z, frames, temperature=0.8, generator=g,
+                                     **kw).tokens
+
+    first, again, other = run(0), run(0), run(1)
+    assert torch.equal(first, again)
+    assert not torch.equal(first, other)
+    eager = _eager_int8_decode(dec, qp, th, z, frames, kw, False, 0.8,
+                               torch.Generator(device=card).manual_seed(0))
+    assert torch.equal(first, eager.tokens)
 
 
 def _small_plan(card, B, wd, kvd, frames=4):

@@ -17,7 +17,7 @@ from mamba_tts_tpu.models.mamba import MambaBlock as JMambaBlock
 from mamba_tts_torch.bridge import load_params
 from mamba_tts_torch.config import DecoderConfig, MambaConfig
 from mamba_tts_torch.infer import quant_decode as tqd
-from mamba_tts_torch.models.decoder import MambaTTSDecoder, greedy_decode
+from mamba_tts_torch.models.decoder import MambaTTSDecoder, greedy_decode, run_decode_loop
 from mamba_tts_torch.models.mamba import MambaBlock
 
 KW = dict(codebook_size=24, d_model=32, n_layers=2, n_heads=4, d_ff=64, d_style=16,
@@ -174,3 +174,57 @@ def test_greedy_decode_matches_jax(setup, mode):
     assert_streams_agree(res_t.tokens.numpy(), res_j.tokens, res_j.logits)
     assert_logits_until_flip(res_t.logits.numpy(), res_j.logits, res_t.tokens.numpy(),
                              res_j.tokens)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_kv"])
+def test_in_place_step_decode_matches_jax_and_python_int_loop(setup, mode):
+    """The captured decode's step (device step index, token/logits written by
+    index, states copied in place), run eagerly on the CPU for all 30 steps
+    (five quantizer streams of 6 frames: four quantizer boundaries), against
+    JAX's ``greedy_decode_int8`` and, exactly, against the loop of
+    ``quant_step_with_kv`` over Python-int steps with returned states."""
+    s = setup
+    dec, v, port, F = s["dec"], s["variables"], s["port"], s["F"]
+    int8_kv = mode == "int8_kv"
+    qp_j = jqd.quantize_decoder_params(v["params"], J_CFG)
+    res_j = jax.jit(lambda: jqd.greedy_decode_int8(
+        dec, v, qp_j, s["th"], s["z"], F, text_mask=s["tm"], ref_hidden=s["rh"],
+        ref_mask=s["rm"], collect_logits=True, int8_kv=int8_kv))()
+    qp = tqd.quantize_decoder_params(port)
+    total = T_CFG.num_quantizers * F
+    with torch.no_grad():
+        KV, mm, films = port.project_memories(_t(s["th"]), _t(s["tm"]), _t(s["rh"]),
+                                              _t(s["rm"]), _t(s["z"]))
+        if int8_kv:
+            KV = tqd.quantize_kv(KV)
+        carry = tqd.init_carry(T_CFG, 2, total, port.dtype, torch.device("cpu"), True)
+        for _ in range(total):
+            tqd.decode_step_(qp, T_CFG, KV, mm, films, carry, F)
+        states = port.init_states(2)
+
+        def step_fn(token, step):
+            nonlocal states
+            logits, states = tqd.quant_step_with_kv(qp, T_CFG, token, KV, mm, films, states,
+                                                    step, F)
+            return logits
+
+        loop = run_decode_loop(step_fn, 2, total, T_CFG.bos_id, T_CFG.num_special_tokens, 0.0,
+                               0, None, True, torch.device("cpu"))
+    assert int(carry.step) == total
+    assert_streams_agree(carry.tokens.numpy(), res_j.tokens, res_j.logits)
+    assert_logits_until_flip(carry.logits.numpy(), res_j.logits, carry.tokens.numpy(),
+                             res_j.tokens)
+    assert torch.equal(carry.tokens, loop.tokens)
+    assert torch.equal(carry.logits, loop.logits)
+    for got, want in zip(carry.states, states):
+        assert torch.equal(got.conv, want.conv) and torch.equal(got.ssm, want.ssm)
+
+
+@pytest.mark.parametrize("steps_per_graph", [1, 4, 5])
+def test_graph_split_covers_every_step(steps_per_graph):
+    """The captured decode runs 1 to ``steps_per_graph`` eager warm-up steps,
+    then whole graphs, and covers every step of any length."""
+    for total in range(1, 60):
+        warm, replays = tqd.graph_split(total, steps_per_graph)
+        assert 1 <= warm <= steps_per_graph
+        assert warm + replays * steps_per_graph == total

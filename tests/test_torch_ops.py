@@ -5,10 +5,13 @@ int8 matvec and flash attention).
 Inputs come from a seeded numpy generator and go through both packages; all
 comparisons are float32 unless a test says otherwise.  The card branch is
 reached without a card by replacing ``on_card`` with a stub."""
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mamba_tts_tpu.ops import int8_matvec as jq
 from mamba_tts_tpu.ops.selective_scan import selective_scan_ref as j_scan_ref
@@ -134,7 +137,10 @@ def test_int8_matvec_kernel_rejects_unsupported_args(case, monkeypatch):
 
 def test_int8_matvec_card_branch_launches_never_plain(monkeypatch):
     """For a card tensor the wrapper goes to the kernel (here: a stub
-    library that records the call) and never to the plain version."""
+    library that records the call) and never to the plain version.  The
+    bias goes to the one launch as an operand (f32 or bf16, by its kind
+    code), and no torch op runs after the launch: the wrapper returns the
+    very tensor the kernel wrote."""
     monkeypatch.setattr(tq, "on_card", lambda t: True)
 
     def no_plain(*a, **k):
@@ -152,6 +158,90 @@ def test_int8_matvec_card_branch_launches_never_plain(monkeypatch):
     with pytest.raises(Reached):
         tq.int8_matvec(*_kernel_args())
     assert tq.int8_matvec.launches == before
+
+    events = []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            events.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    class Lib:
+        def int8_matvec_launch(self, *args):
+            events.append(("launch", args))
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(tq, "_library", Lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: Stream())
+    x, w, s = _kernel_args()
+    for bias, kind in ((None, 0), (torch.ones(32), 1), (torch.ones(32, dtype=torch.bfloat16), 2)):
+        events.clear()
+        before = tq.int8_matvec.launches
+        with Ops():
+            y = tq.int8_matvec(x, w, s, bias)
+        assert tq.int8_matvec.launches == before + 1
+        assert isinstance(events[-1], tuple), f"torch ops after the launch: {events}"
+        args = events[-1][1]
+        assert sum(isinstance(e, tuple) for e in events) == 1
+        assert args[3] == (None if bias is None else bias.data_ptr()) and args[4] == kind
+        assert args[5] == y.data_ptr() and y.shape == (2, 32) and y.dtype == torch.bfloat16
+        plan = tq.launch_plan(2, 64, 32)
+        assert args[9:12] == (plan.cluster, plan.strip, plan.smem_bytes)
+
+
+DECODE_SHAPES = [(512, 2048), (1024, 512), (512, 512), (512, 512), (512, 2048), (2048, 512)]
+
+
+@pytest.mark.parametrize("K,N", sorted(set(DECODE_SHAPES)))
+@pytest.mark.parametrize("B", [1, 4, 16])
+def test_int8_matvec_ref_with_bias_is_bit_identical_to_jax(K, N, B):
+    """The plain version with a bias, at a decode shape, in the card's
+    dtypes (bf16 x, f32 bias, bf16 out), equals JAX's bit for bit.  The
+    weights are built so that every column's scale is a power of two and x
+    holds small multiples of 1/8: every product and partial sum is then
+    exact in f32 whatever the summation order, and the only roundings left
+    are the two the kernel's epilogue copies (the product to bf16, then
+    product + bf16(bias) to bf16)."""
+    rng = np.random.default_rng(K + N + B)
+    exp = rng.integers(-9, -4, N)
+    w = rng.integers(-127, 128, (K, N)).astype(np.float32)
+    w[0] = 127.0  # each column's largest magnitude is 127: scale = 2**exp exactly
+    w *= np.exp2(exp)[None].astype(np.float32)
+    x = (rng.integers(-8, 9, (B, K)) / 8.0).astype(np.float32)
+    bias = (rng.standard_normal(N) * 0.5).astype(np.float32)
+    q, sc = jq.quantize_weight(jnp.asarray(w))
+    np.testing.assert_array_equal(np.asarray(sc), np.exp2(exp).astype(np.float32))
+    y_j = jq.int8_matvec_ref(jnp.asarray(x, jnp.bfloat16), q, sc, jnp.asarray(bias))
+    y_t = tq.int8_matvec_ref(torch.from_numpy(x).bfloat16(), torch.from_numpy(np.array(q)),
+                             torch.from_numpy(np.array(sc)), torch.from_numpy(bias))
+    assert y_t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(y_t.view(torch.int16).numpy(),
+                                  np.asarray(y_j).view(np.int16))
+
+
+@pytest.mark.parametrize("K,N", sorted(set(DECODE_SHAPES)))
+def test_int8_matvec_launch_plan_is_valid(K, N):
+    """At every decode shape and B <= 16: a portable cluster that splits K
+    into non-empty parts, a strip the kernel has, the strips covering N,
+    about one block per SM of the 132 or more, and shared memory a block
+    may use."""
+    for B in range(1, tq.MAX_BATCH + 1):
+        p = tq.launch_plan(B, K, N)
+        assert 1 <= p.cluster <= tq.MAX_CLUSTER and p.strip in tq.STRIPS
+        strips = -(-N // p.strip)
+        assert p.blocks == p.cluster * strips and (strips - 1) * p.strip < N
+        assert 128 <= p.blocks <= 2 * 132
+        kc = -(-K // p.cluster)
+        assert (p.cluster - 1) * kc < K and kc >= tq.MIN_ROWS
+        assert p.batch_tile >= B and p.batch_tile in (1, 2, 4, 8, 16)
+        stage = max(kc * p.batch_tile * 2, tq.THREADS // 32 * p.batch_tile * p.strip * 4)
+        mine = -(-p.batch_tile * p.strip // tq.THREADS)  # receive slots for the cluster
+        assert p.smem_bytes >= stage + mine * p.cluster * tq.THREADS * 4
+        assert p.smem_bytes <= tq.MAX_SMEM_BYTES and p.smem_bytes % 16 == 0
 
 
 def test_scan_forward_dispatches_to_kernels_on_card(monkeypatch):
