@@ -7,10 +7,14 @@ from a Python loop, and the card idles while the host dispatches them.  Here
 the whole decode of ``Q * frames`` steps is ONE launch of the hand-written
 Hopper kernel ``csrc/decode_megakernel.cu`` (which replaces the TPU kernel
 ``mamba_tts_tpu/ops/decode_megakernel.py:532`` ``_make_kernel``): a
-persistent cooperative grid loops over steps and layers, grid barriers
-separate dependent stages, the conv/SSM state lives in device buffers, and
-each step's argmax (or Gumbel-max sample) feeds the next step's embedding on
-the device with no host round trip.
+persistent grid of thread-block clusters loops over steps and layers, grid
+barriers separate dependent stages (7 a layer and one for the head), each
+block owns a fixed set of d_inner channels (their conv ring and SSM state
+stay in its shared memory for the whole launch) and fixed output columns of
+every product (kept in its shared memory where they fit), a cluster per
+(row, head) computes one query's attention, and each step's argmax (or
+Gumbel-max sample) feeds the next step's embedding on the device with no
+host round trip.
 
 Host side, same contract as the JAX module:
 
@@ -18,8 +22,11 @@ Host side, same contract as the JAX module:
   (``infer.quant_decode.quantize_decoder_params``) and the per-utterance
   conditioning (``MambaTTSDecoder.project_memories``) into a :class:`_Plan`
   whose fields, shapes and dtypes equal the JAX plan's.
+- :func:`launch_plan` lays one launch out (pure Python): cluster size, grid,
+  channel and column owners, resident weight slices, shared-memory bytes.
 - :func:`_kernel_operands` re-lays a plan out for the CUDA kernel (weights
-  transposed so that one output column's inputs are contiguous).
+  transposed so that one output column's inputs are contiguous, in_proj's
+  rows block-major).
 - :func:`decode_megakernel_ref` is the plain PyTorch version: the same
   arithmetic with the same bf16 rounding points, op for op.
 - :func:`plan_resident_bytes`, :func:`megakernel_fit`,
@@ -30,8 +37,9 @@ Host side, same contract as the JAX module:
 - :func:`megakernel_greedy_decode` is the decode entry point.
 
 What bounds the kernel on an H100: every step reads the whole plan (weights
-and K/V) once from device memory; the plan exceeds the 50 MB L2 at the
-default width, so the least time per step is ``plan bytes / 3.35 TB/s``.
+and K/V) once; what is not resident in shared memory streams from L2 or, where
+the plan exceeds the 50 MB L2, from device memory, so the least time per step
+is ``plan bytes / 3.35 TB/s`` without residency.
 """
 from __future__ import annotations
 
@@ -54,9 +62,12 @@ MEGAKERNEL_MAX_BATCH = 8
 # and PyTorch's caching allocator.
 H100_HBM_BYTES = 80 * 10 ** 9
 MEGAKERNEL_BUDGET_BYTES = H100_HBM_BYTES // 2
-_MAX_SMEM_BYTES = 232_448  # dynamic shared memory one H100 block may use
-_WARPS = 16  # warps per block of the kernel (kWarps in the CUDA source)
+_MAX_SMEM_BYTES = 232_448  # shared memory one H100 block may use
+_STATIC_SMEM = 1024  # the kernel's static shared variables fit in this (kStaticSmem)
+_WARPS = 8  # warps per block of the kernel (kWarps in the CUDA source)
 _SMS = 132  # streaming multiprocessors of an H100
+_GRID = _SMS // 8 * 8  # 128 blocks: whole clusters of up to 8, one block per SM
+_ONE_BLOCK_SMEM = 120 * 1024  # a block asks at least this much: one block per SM
 
 
 def _round_up(x: int, m: int) -> int:
@@ -466,14 +477,17 @@ def decode_megakernel_ref(cfg: DecoderConfig, plan: _Plan, frames_per_stream: in
 # what one call holds on the device
 
 
-def _kernel_operands(plan: _Plan) -> Dict[str, torch.Tensor]:
+def _kernel_operands(plan: _Plan, grid: int = _GRID) -> Dict[str, torch.Tensor]:
     """Re-lay a :class:`_Plan` out for the CUDA kernel.
 
-    Each warp of the kernel computes one output column of a product as a
-    dot over contiguous memory, so every (K, N) weight becomes (N, K); the
-    three x-projections become one (r + 2N, di) matrix.  Everything else is
-    read as the plan lays it (``headmask`` is not read at all: the kernel
-    walks each head's own channels).  Byte counts equal the plan's."""
+    A block of the kernel computes its own output columns of each product as
+    dots over contiguous memory, so every (K, N) weight becomes (N, K); the
+    three x-projections become one (r + 2N, di) matrix.  in_proj's rows go
+    block-major: the x and then the z columns of block 0's d_inner channels
+    (:func:`launch_plan`'s ``chan`` for ``grid`` blocks), then block 1's, so
+    that each block's slice is contiguous; its scales follow them.  Everything
+    else is read as the plan lays it (``headmask`` is not read at all: the
+    kernel walks each head's own channels).  Byte counts equal the plan's."""
     p = plan
 
     def t(w):  # (L, K, N) -> (L, N, K)
@@ -482,10 +496,14 @@ def _kernel_operands(plan: _Plan) -> Dict[str, torch.Tensor]:
     def flat(s):  # (L, 1, n) -> (L, n)
         return s[:, 0].contiguous()
 
+    di = p.in_w.shape[2] // 2
+    chan = _bounds(di, grid)
+    order = torch.cat([torch.cat([torch.arange(lo, hi), torch.arange(di + lo, di + hi)])
+                       for lo, hi in zip(chan[:-1], chan[1:])]).to(p.in_w.device)
     return {
         "emb_pq": p.emb_pq.contiguous(), "token_embed": p.token_embed.contiguous(),
         "norms": p.norms.contiguous(),
-        "in_w": t(p.in_w), "in_s": flat(p.in_s),
+        "in_w": t(p.in_w)[:, order].contiguous(), "in_s": flat(p.in_s)[:, order].contiguous(),
         "conv_w": p.conv_w.contiguous(), "conv_b": flat(p.conv_b),
         "xp_w": t(torch.cat([p.xp_dt, p.xp_B, p.xp_C], dim=2)),
         "dt_w": p.dt_w.contiguous(), "dt_b": flat(p.dt_b),
@@ -504,21 +522,152 @@ def _kernel_operands(plan: _Plan) -> Dict[str, torch.Tensor]:
     }
 
 
-def memory_slices(batch: int, n_heads: int) -> int:
-    """Slices the kernel cuts the attention memory into: as many (8 at most)
-    as give every SM of an H100 at most one (row, head, slice) at a time."""
-    return next(ts for ts in (8, 4, 2, 1) if batch * n_heads * ts <= _SMS or ts == 1)
+def memory_slices(batch: int, n_heads: int, grid: int = _GRID) -> int:
+    """Slices the kernel cuts the attention memory into, which is also the
+    launch's cluster size: as many (8 at most) as keep every (row, head,
+    slice) on its own block of a ``grid``-block launch."""
+    return next(ts for ts in (8, 4, 2, 1) if batch * n_heads * ts <= grid or ts == 1)
 
 
-def _call_buffers(cfg: DecoderConfig, batch: int, memory_len: int, total: int,
-                  device) -> Dict[str, torch.Tensor]:
+# ---------------------------------------------------------------- the launch plan
+
+# Products whose per-block slices the kernel can keep in shared memory, in
+# the order of their regions there and of the bits of MKParams::resident.
+_PRODUCTS = ("in_w", "out_w", "q_w", "o_w", "ff1_w", "ff2_w", "head_w")
+# The order in which :func:`launch_plan` makes them resident while they fit.
+_RESIDENT_ORDER = ("o_w", "q_w", "out_w", "ff2_w", "in_w", "ff1_w", "head_w")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _bounds(n: int, parts: int) -> tuple:
+    """Part g of ``n`` split over ``parts`` is ``[b[g], b[g + 1])`` (the CUDA
+    source's ``split_lo``)."""
+    return tuple(n * g // parts for g in range(parts + 1))
+
+
+def _tile(batch: int) -> int:
+    return next(t for t in (1, 2, 4, 8) if batch <= t) if batch <= 8 else batch
+
+
+class LaunchPlan(NamedTuple):
+    """How one launch is laid out (:func:`launch_plan`)."""
+
+    batch: int
+    tile: int              # the kernel's batch tile (1, 2, 4 or 8)
+    grid: int              # blocks, one per SM
+    cluster: int           # blocks per cluster = memory slices of an attention unit
+    clusters: int
+    units: int             # (row, head) attention units, unit u on cluster u % clusters
+    chan: tuple            # block g owns d_inner channels [chan[g], chan[g+1])
+    cols: Dict[str, tuple]  # block g owns rows [cols[w][g], cols[w][g+1]) of weight w (N, K)
+    q_cols: int            # q columns of the unit's head per rank of its cluster
+    resident: tuple        # weights whose block slices stay in shared memory
+    smem_bytes: int
+
+
+def _geometry(cfg: DecoderConfig, grid: int, cluster: int, weight_dtype: str) -> dict:
+    """Per product: (rows a block holds at most, K, bytes per element, layers)."""
+    c = cfg
+    m = c.with_mamba_dims().mamba
+    L, d, di, dff = c.n_layers, c.d_model, m.d_inner, c.d_ff
+    wb = 1 if weight_dtype == "int8" else 2
+    ncd = _cdiv(d, grid)
+    Vpad = _round_up(c.vocab_size_audio, 128)
+    return {
+        "in_w": (2 * _cdiv(di, grid), d, wb, L), "out_w": (ncd, di, wb, L),
+        "q_w": ((d // c.n_heads) // cluster, d, wb, L), "o_w": (ncd, d, wb, L),
+        "ff1_w": (_cdiv(dff, grid), d, wb, L), "ff2_w": (ncd, dff, wb, L),
+        "head_w": (_cdiv(Vpad, grid), d, 2, 1),
+    }
+
+
+def _smem_layout(cfg: DecoderConfig, batch: int, Tmp: int, weight_dtype: str, grid: int,
+                 cluster: int, resident) -> tuple:
+    """(bytes one block asks for, at least ``_ONE_BLOCK_SMEM``; bytes its
+    regions take) of its dynamic shared memory, each region 16-byte aligned.
+    Mirrors ``make_layout`` in the CUDA source, which refuses a launch whose
+    size differs."""
+    c = cfg
+    m = c.with_mamba_dims().mamba
+    L, d, di, N, r, dc, dff = (c.n_layers, c.d_model, m.d_inner, m.d_state, m.dt_rank_actual,
+                               m.d_conv, c.d_ff)
+    BT, hd, nx = _tile(batch), d // c.n_heads, r + 2 * N
+    nc = _cdiv(di, grid)
+    geo = _geometry(c, grid, cluster, weight_dtype)
+    segs = max(rows * _cdiv(K, 32 * (16 // eb)) for rows, K, eb, _ in geo.values())
+    sizes = [
+        ("xrow", 4 * BT * d),                       # the residual row as of the last barrier
+        ("xs", 4 * BT * max(d, di, dff)),           # a product's input rows
+        ("part", 4 * BT * segs),                    # a product's segment sums
+        ("red", 4 * _WARPS * max(BT, 2)),           # block reductions
+        ("mamba", 4 * 3 * BT * nc),                 # x, z and conv output of the owned channels
+        ("xrecv", 4 * (BT * nx + 8)),               # the cluster's x-projection partials pushed here
+        ("dbc", 4 * BT * nx),                       # the x-projection row (dt | B | C)
+        ("scores", 4 * (Tmp // cluster)),           # this slice's scores, then probabilities
+        ("qk", 4 * hd), ("smax", 4 * 8), ("ssum", 4 * 8),  # pushed by the cluster's ranks
+        ("orecv", 4 * hd), ("wpart", 4 * _WARPS * hd),  # P @ V parts pushed here; per warp
+        ("ring", 4 * L * (dc - 1) * BT * nc),       # conv ring of the owned channels
+        ("ssm", 4 * L * BT * N * nc),               # SSM state of the owned channels
+        ("conv_w", 4 * L * dc * nc), ("conv_b", 4 * L * nc), ("xp_w", 2 * L * nx * nc),
+        ("dt_w", 2 * L * r * nc), ("dt_b", 4 * L * nc), ("A", 4 * L * N * nc), ("D", 4 * L * nc),
+    ]
+    sizes += [(w, rows * K * eb * layers) for w, (rows, K, eb, layers) in geo.items()
+              if w in resident]
+    off = sum((n + 15) & ~15 for _, n in sizes)
+    return max(off, _ONE_BLOCK_SMEM), off
+
+
+def launch_plan(cfg: DecoderConfig, batch: int, Tmp: int, weight_dtype: str = "bfloat16",
+                kv_dtype: str = "bfloat16", grid: Optional[int] = None) -> LaunchPlan:
+    """Lay one launch out: the cluster size (``memory_slices``), ``grid``
+    blocks (default 128, whole clusters on an H100's 132 SMs; the wrapper
+    lowers it to what the card fits), the owners of every d_inner channel and
+    of every output column of every product, and which weight slices stay in
+    shared memory: in ``_RESIDENT_ORDER``, each that still fits beside the
+    working set (q_w only when every cluster has at most one attention unit,
+    so that its slice is fixed).  ``kv_dtype`` does not change the layout
+    (scores are f32 either way)."""
+    del kv_dtype
+    c = cfg
+    m = c.with_mamba_dims().mamba
+    d, di, dff, H = c.d_model, m.d_inner, c.d_ff, c.n_heads
+    G = _GRID if grid is None else grid
+    TS = memory_slices(batch, H, G)
+    G -= G % TS
+    clusters, units = G // TS, batch * H
+    resident = []
+    for w in _RESIDENT_ORDER:
+        if w == "q_w" and units > clusters:
+            continue
+        if (_smem_layout(c, batch, Tmp, weight_dtype, G, TS, resident + [w])[1]
+                <= _MAX_SMEM_BYTES - _STATIC_SMEM):
+            resident.append(w)
+    resident = tuple(w for w in _PRODUCTS if w in resident)
+    smem, _ = _smem_layout(c, batch, Tmp, weight_dtype, G, TS, resident)
+    dcols = _bounds(d, G)
+    return LaunchPlan(
+        batch=batch, tile=_tile(batch), grid=G, cluster=TS, clusters=clusters, units=units,
+        chan=_bounds(di, G),
+        cols={"in_w": tuple(2 * b for b in _bounds(di, G)), "out_w": dcols, "o_w": dcols,
+              "ff2_w": dcols, "ff1_w": _bounds(dff, G),
+              "head_w": _bounds(_round_up(c.vocab_size_audio, 128), G)},
+        q_cols=(d // H) // TS, resident=resident, smem_bytes=smem)
+
+
+def _call_buffers(cfg: DecoderConfig, batch: int, total: int, device,
+                  grid: int = _GRID) -> Dict[str, torch.Tensor]:
     """Outputs, state and per-step scratch of one call (uninitialised: the
-    kernel zeroes the state itself), plus the zeroed barrier/error words."""
+    kernel keeps the state in shared memory and writes it at the end), plus
+    the zeroed barrier/error words."""
     c = cfg
     m = c.with_mamba_dims().mamba
     L, d, di, N, r = c.n_layers, c.d_model, m.d_inner, m.d_state, m.dt_rank_actual
     B = batch
     Vpad = _round_up(c.vocab_size_audio, 128)
+    clusters = grid // memory_slices(B, c.n_heads, grid)
 
     def e(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=device)
@@ -528,12 +677,10 @@ def _call_buffers(cfg: DecoderConfig, batch: int, memory_len: int, total: int,
         "conv_state": e((L, m.d_conv - 1, B, di), BF16),
         "ssm_state": e((L, B, N, di), F32),
         # activation rows handed from one stage of a step to the next
-        "x": e((B, d), BF16), "xz": e((B, 2 * di), BF16), "xc": e((B, di), BF16),
-        "dbc": e((B, r + 2 * N), BF16), "y": e((B, di), BF16), "q": e((B, d), BF16),
+        "x": e((B, d), BF16), "y": e((B, di), BF16), "attn": e((B, d), BF16),
         "h1": e((B, c.d_ff), BF16),
-        # attention: the layer's scores, and one P @ V row per slice of the memory
-        "scores": e((B, c.n_heads, _round_up(memory_len, 128)), F32),
-        "attn_part": e((memory_slices(B, c.n_heads), B, d), F32),
+        # each cluster's sum of its blocks' x-projection partials
+        "xpart": e((clusters, B, r + 2 * N), F32),
         "sync": torch.zeros((2,), dtype=torch.int64, device=device),
     }
 
@@ -553,7 +700,7 @@ def plan_resident_bytes(
     """Device bytes one megakernel call allocates: the plan as the kernel
     reads it (:func:`_kernel_operands`), the logits, the optional Gumbel
     noise and forced tokens (all whole in device memory), the conv/SSM state
-    and the per-step scratch (:func:`_call_buffers`).
+    and the per-step scratch (:func:`_call_buffers`), at the default grid.
 
     ``memory_len`` is the unpadded cross-attention memory length (ref + text
     tokens).  ``total_steps`` defaults to the longest decode the position
@@ -601,9 +748,8 @@ def plan_resident_bytes(
 
     n += L * (dc - 1) * B * di * 2             # conv state
     n += L * B * N * di * 4                    # SSM state
-    n += B * (2 * d + 4 * di + r + 2 * N + dff) * 2  # x, q | xz, xc, y | dbc | h1
-    n += B * c.n_heads * Tmp * 4               # attention scores of one layer
-    n += memory_slices(B, c.n_heads) * B * d * 4  # P @ V rows, one per memory slice
+    n += B * (2 * d + di + dff) * 2            # x, attn | y | h1
+    n += _GRID // memory_slices(B, c.n_heads) * B * (r + 2 * N) * 4  # x-projection sum per cluster
     n += 2 * 8                                 # barrier and error words
     return n
 
@@ -668,11 +814,10 @@ _POINTERS = (  # order of the pointer members of MKParams in the CUDA source
     "dt_b", "A", "D", "out_w", "out_s", "q_w", "q_s", "q_b", "K", "V", "k_scale", "v_scale",
     "mask_row", "o_w", "o_s", "o_b", "gamma", "beta", "ff1_w", "ff1_s", "ff1_b", "ff2_w",
     "ff2_s", "ff2_b", "norm_out", "head_w", "head_b", "forced", "gumbel",
-    "logits", "conv_state", "ssm_state", "x", "xz", "xc", "dbc", "y", "q", "scores", "attn_part",
-    "h1", "sync", "stage_clock",
+    "logits", "conv_state", "ssm_state", "x", "y", "attn", "h1", "xpart", "sync", "stage_clock",
 )
 _INTS = ("total", "B", "L", "d", "di", "N", "r", "dc", "H", "dff", "Vpad", "Tmp", "bos",
-         "w_int8", "kv_int8", "smem_bytes", "TS")
+         "w_int8", "kv_int8", "grid", "TS", "resident", "smem_bytes")
 
 
 class _MKParams(ctypes.Structure):
@@ -681,35 +826,26 @@ class _MKParams(ctypes.Structure):
                 + [("att_scale", ctypes.c_float), ("clock_step", ctypes.c_int)])
 
 
-def _smem_bytes(cfg: DecoderConfig, batch: int, Tmp: int) -> int:
-    """Dynamic shared memory of one block: the batch tile's activation rows
-    at the widest product, or one head's score row plus the P @ V partial
-    rows, followed by the block-reduction scratch (8 floats per warp), which
-    the kernel finds at the end of the region."""
-    c = cfg
-    di = c.with_mamba_dims().mamba.d_inner
-    bt = next(t for t in (1, 2, 4, 8) if batch <= t)
-    hd = c.d_model // c.n_heads
-    rows = bt * max(c.d_model, di, c.d_ff)
-    attn = Tmp + _WARPS * hd
-    return 4 * (max(rows, attn) + 8 * _WARPS)
-
-
-def check_kernel_args(cfg: DecoderConfig, ops: Dict[str, torch.Tensor]) -> None:
-    """Raise ``ValueError`` for anything the CUDA kernel does not take."""
+def check_kernel_args(cfg: DecoderConfig, ops: Dict[str, torch.Tensor],
+                      lp: Optional[LaunchPlan] = None) -> None:
+    """Raise ``ValueError`` for anything the CUDA kernel does not take; ``lp``
+    (default: :func:`launch_plan` of the operands) is checked too."""
     c = cfg
     m = c.with_mamba_dims().mamba
-    d, di, dff, H = c.d_model, m.d_inner, c.d_ff, c.n_heads
+    d, di, dff, H, N = c.d_model, m.d_inner, c.d_ff, c.n_heads, m.d_state
     B, Tmp = ops["K"].shape[1], ops["K"].shape[3]
     if not 1 <= B <= MEGAKERNEL_MAX_BATCH:
         raise ValueError(f"decode megakernel takes 1 <= B <= {MEGAKERNEL_MAX_BATCH}, got B={B}")
-    if d % 16 or di % 16 or dff % 16:  # (d_inner % 8 also keeps a warp's 8 channels in one row)
+    if d % 16 or di % 16 or dff % 16:
         raise ValueError("decode megakernel needs d_model, d_inner and d_ff to be multiples "
                          f"of 16 (16-byte weight loads), got {d}, {di}, {dff}")
     hd = d // H
     if d % H or hd % 8 or 32 % (hd // 8):
         raise ValueError("decode megakernel needs a head width of 8, 16, 32, 64, 128 or 256 "
                          f"(8 channels per lane, lanes per head a power of two), got {d}/{H}")
+    if N > 32 or N & (N - 1):
+        raise ValueError(f"decode megakernel needs d_state a power of two <= 32 (a lane per "
+                         f"state), got {N}")
     if not 2 <= m.d_conv <= 4:
         raise ValueError(f"decode megakernel needs 2 <= d_conv <= 4, got {m.d_conv}")
     if Tmp % 128:
@@ -724,16 +860,32 @@ def check_kernel_args(cfg: DecoderConfig, ops: Dict[str, torch.Tensor]) -> None:
     for name, t in ops.items():
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"decode megakernel: operand {name} must be contiguous on {dev}")
-    if _smem_bytes(c, B, Tmp) > _MAX_SMEM_BYTES:
+    if lp is None:
+        lp = launch_plan(c, B, Tmp, "int8" if w_dt == I8 else "bfloat16")
+    TS = lp.cluster
+    if (TS != memory_slices(B, H, lp.grid) or lp.grid % TS or hd % TS or (Tmp // TS) % 8
+            or lp.batch != B):
+        raise ValueError(f"decode megakernel: cluster size {TS} of a {lp.grid}-block launch does "
+                         f"not fit B={B}, {H} heads of {hd}, memory {Tmp}")
+    if lp.smem_bytes > _MAX_SMEM_BYTES - _STATIC_SMEM:
         raise ValueError(f"decode megakernel: B={B}, memory {Tmp} exceed a block's shared memory")
 
 
+_STAGES = ("mamba_in", "ssm_gate", "out_proj", "attention", "o_proj", "ff1", "ff2")
+
+
 def stage_names(cfg: DecoderConfig) -> list:
-    """The stages of one step, one per grid barrier, in order."""
-    per_layer = ("in_proj", "conv_xproj", "ssm_gate", "out_proj", "q_proj", "attn_scores",
-                 "attn_values", "o_proj", "ff1", "ff2")
-    return (["embed"] + [f"L{l}.{s}" for l in range(cfg.n_layers) for s in per_layer]
-            + ["head"])
+    """The stages of one step, one per grid barrier, in order: 7 a layer
+    (LN + in_proj + conv + x-partials | dt + SSM + gate | out_proj | LN + q +
+    attention | o_proj | LN + FiLM + ff1 | ff2) and the head.  The argmax and
+    the next embedding need none: every block takes them for itself."""
+    return [f"L{l}.{s}" for l in range(cfg.n_layers) for s in _STAGES] + ["head"]
+
+
+def stage_clock_count(cfg: DecoderConfig) -> int:
+    """Stamps of the ``stage_clocks`` diagnostic: the step's start, then both
+    sides of every grid barrier."""
+    return 1 + 2 * len(stage_names(cfg))
 
 
 def _library() -> ctypes.CDLL:
@@ -743,22 +895,76 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         lib.decode_megakernel_launch.argtypes = [ctypes.POINTER(_MKParams), ctypes.c_void_p]
         lib.decode_megakernel_launch.restype = ctypes.c_int
+        lib.decode_megakernel_max_grid.argtypes = [ctypes.POINTER(_MKParams),
+                                                   ctypes.POINTER(ctypes.c_int)]
+        lib.decode_megakernel_max_grid.restype = ctypes.c_int
         lib.decode_megakernel_error_string.argtypes = [ctypes.c_int]
         lib.decode_megakernel_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
 
 
+def _check(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"decode megakernel {what} failed: "
+                           f"{lib.decode_megakernel_error_string(err).decode()}")
+
+
+def _params(cfg: DecoderConfig, lp: LaunchPlan, total: int, Tmp: int, w_int8: bool,
+            kv_int8: bool, tensors: Optional[Dict[str, Optional[torch.Tensor]]] = None
+            ) -> _MKParams:
+    c = cfg
+    m = c.with_mamba_dims().mamba
+    t = tensors or {}
+    return _MKParams(
+        **{n: (None if t.get(n) is None else t[n].data_ptr()) for n in _POINTERS},
+        total=total, B=lp.batch, L=c.n_layers, d=c.d_model, di=m.d_inner, N=m.d_state,
+        r=m.dt_rank_actual, dc=m.d_conv, H=c.n_heads, dff=c.d_ff,
+        Vpad=_round_up(c.vocab_size_audio, 128), Tmp=Tmp, bos=c.bos_id, w_int8=int(w_int8),
+        kv_int8=int(kv_int8), grid=lp.grid, TS=lp.cluster,
+        resident=sum(1 << i for i, w in enumerate(_PRODUCTS) if w in lp.resident),
+        smem_bytes=lp.smem_bytes, att_scale=(c.d_model // c.n_heads) ** -0.5,
+        clock_step=total // 2)
+
+
+_MAX_GRID: Dict[tuple, int] = {}
+
+
+def _card_plan(cfg: DecoderConfig, B: int, Tmp: int, wd: str, kvd: str, dev) -> LaunchPlan:
+    """:func:`launch_plan` at the largest grid of whole clusters that the card
+    keeps resident at once (asked of the CUDA occupancy calculator; 128 blocks
+    on an H100 when 16 clusters of 8 fit)."""
+    lib = _library()
+    lp = launch_plan(cfg, B, Tmp, wd, kvd)
+    for _ in range(4):
+        key = (str(dev), wd, lp.tile, lp.cluster, lp.smem_bytes)
+        if key not in _MAX_GRID:
+            got = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                _check(lib, lib.decode_megakernel_max_grid(
+                    ctypes.byref(_params(cfg, lp, 1, Tmp, wd == "int8", kvd == "int8")),
+                    ctypes.byref(got)), "occupancy query")
+            _MAX_GRID[key] = got.value
+        if _MAX_GRID[key] >= lp.grid:
+            return lp
+        lp = launch_plan(cfg, B, Tmp, wd, kvd, grid=_MAX_GRID[key])
+    raise RuntimeError(f"decode megakernel: the card keeps no grid of clusters resident for B={B}")
+
+
 def _launch(cfg: DecoderConfig, plan: _Plan, total: int, forced, gumbel,
             stage_clocks=None) -> MegakernelOut:
     c = cfg
-    m = c.with_mamba_dims().mamba
-    ops = _kernel_operands(plan)
-    check_kernel_args(c, ops)
     dev = plan.K.device
     B, Tmp = plan.K.shape[1], plan.K.shape[3]
     Vpad = plan.token_embed.shape[0]
-    bufs = _call_buffers(c, B, Tmp, total, dev)
+    w_int8, kv_int8 = plan.in_w.dtype == I8, plan.K.dtype == I8
+    wd, kvd = ("int8" if w_int8 else "bfloat16"), ("int8" if kv_int8 else "bfloat16")
+    if not 1 <= B <= MEGAKERNEL_MAX_BATCH:
+        raise ValueError(f"decode megakernel takes 1 <= B <= {MEGAKERNEL_MAX_BATCH}, got B={B}")
+    lp = _card_plan(c, B, Tmp, wd, kvd, dev)
+    ops = _kernel_operands(plan, lp.grid)
+    check_kernel_args(c, ops, lp)
+    bufs = _call_buffers(c, B, total, dev, lp.grid)
     if forced is not None:
         if tuple(forced.shape) != (total, B):
             raise ValueError(f"forced tokens must be (total, B) = ({total}, {B}), "
@@ -772,27 +978,17 @@ def _launch(cfg: DecoderConfig, plan: _Plan, total: int, forced, gumbel,
                              f"got {tuple(gumbel.shape)}")
         gumbel = gumbel.to(device=dev, dtype=F32).contiguous()
     if stage_clocks is not None:
-        need = 2 * len(stage_names(c))
+        need = stage_clock_count(c)
         if (stage_clocks.dtype != torch.int64 or stage_clocks.device != dev
                 or not stage_clocks.is_contiguous() or stage_clocks.numel() < need):
             raise ValueError(f"stage_clocks must be a contiguous int64 tensor of >= {need} "
                              f"entries on {dev}")
     tensors = {**ops, **bufs, "forced": forced, "gumbel": gumbel, "stage_clock": stage_clocks}
-    params = _MKParams(
-        **{n: (None if tensors[n] is None else tensors[n].data_ptr()) for n in _POINTERS},
-        total=total, B=B, L=c.n_layers, d=c.d_model, di=m.d_inner, N=m.d_state,
-        r=m.dt_rank_actual, dc=m.d_conv, H=c.n_heads, dff=c.d_ff, Vpad=Vpad, Tmp=Tmp,
-        bos=c.bos_id, w_int8=int(ops["in_w"].dtype == I8), kv_int8=int(ops["K"].dtype == I8),
-        smem_bytes=_smem_bytes(c, B, Tmp), TS=memory_slices(B, c.n_heads),
-        att_scale=(c.d_model // c.n_heads) ** -0.5, clock_step=total // 2,
-    )
+    params = _params(c, lp, total, Tmp, w_int8, kv_int8, tensors)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.decode_megakernel_launch(ctypes.byref(params), stream)
-    if err:
-        raise RuntimeError("decode megakernel launch failed: "
-                           f"{lib.decode_megakernel_error_string(err).decode()}")
+        _check(lib, lib.decode_megakernel_launch(ctypes.byref(params), stream), "launch")
     _megakernel_call.launches += 1
     # The error word is the one thing read back here: a grid barrier that
     # waited past its limit sets it and every block leaves the kernel.
@@ -816,9 +1012,9 @@ def _megakernel_call(cfg: DecoderConfig, plan: _Plan, frames_per_stream: int,
     ``unroll_steps`` must divide the step count, as in the JAX package; the
     kernel loops over steps itself, so results do not depend on it.
     ``stage_clocks`` (int64, on the card) is a diagnostic: the kernel's block
-    0 writes its cycle counter on entering and leaving every grid barrier of
-    the middle step (``2 * len(stage_names(cfg))`` stamps), which splits a
-    step into each stage's work and each barrier's wait.
+    0 writes its cycle counter at the start of the middle step and on entering
+    and leaving each of its grid barriers (``stage_clock_count(cfg)`` stamps),
+    which splits a step into each stage's work and each barrier's wait.
 
     CUDA tensors launch the Hopper kernel or raise; CPU tensors run
     :func:`decode_megakernel_ref`.

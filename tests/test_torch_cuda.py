@@ -133,15 +133,19 @@ def test_captured_sampled_int8_decode_on_card(card):
     assert torch.equal(first, eager.tokens)
 
 
-def _small_plan(card, B, wd, kvd, frames=4):
-    cfg = DecoderConfig(codebook_size=16, d_model=64, n_layers=2, n_heads=4, d_ff=128, d_style=32,
-                        max_len=256, num_quantizers=2, dtype="bfloat16", scan_chunk=8,
-                        use_pallas=False, mamba=MambaConfig(d_model=64, d_state=4))
+def _small_cfg(d=64, H=4):
+    return DecoderConfig(codebook_size=16, d_model=d, n_layers=2, n_heads=H, d_ff=2 * d,
+                         d_style=32, max_len=256, num_quantizers=2, dtype="bfloat16",
+                         scan_chunk=8, use_pallas=False, mamba=MambaConfig(d_model=d, d_state=4))
+
+
+def _small_plan(card, B, wd, kvd, frames=4, d=64, H=4):
+    cfg = _small_cfg(d, H)
     dec = seed_init(MambaTTSDecoder(cfg), 0).to(card).eval()
     g = torch.Generator(device=card).manual_seed(B)
-    th = torch.randn((B, 7, 64), generator=g, device=card).bfloat16()
+    th = torch.randn((B, 7, d), generator=g, device=card).bfloat16()
     z = torch.randn((B, 32), generator=g, device=card).bfloat16()
-    rh = torch.randn((B, 11, 64), generator=g, device=card).bfloat16()
+    rh = torch.randn((B, 11, d), generator=g, device=card).bfloat16()
     tm = torch.ones((B, 7), dtype=torch.bool, device=card)
     tm[:, 5:] = False
     with torch.no_grad():
@@ -151,18 +155,20 @@ def _small_plan(card, B, wd, kvd, frames=4):
     return cfg, plan, frames
 
 
-@pytest.mark.parametrize("B", [1, 2, 3, 8])  # batch tiles 1, 2, 4, 8
-@pytest.mark.parametrize("wd,kvd", mk._DTYPE_LADDER)
-def test_decode_megakernel_matches_plain_on_card(card, B, wd, kvd):
-    cfg, plan, frames = _small_plan(card, B, wd, kvd)
+def _versus_plain(card, cfg, plan, frames, B):
+    """One teacher-forced launch (and a rerun) against the plain version:
+    the megakernel's limits, one launch per call, reruns bit-identical."""
     total = cfg.num_quantizers * frames
     g = torch.Generator(device=card).manual_seed(1)
     forced = torch.randint(2, cfg.vocab_size_audio, (total, B), generator=g, device=card,
                            dtype=torch.int32)
     before = mk._megakernel_call.launches
     got = mk._megakernel_call(cfg, plan, frames, forced)
+    again = mk._megakernel_call(cfg, plan, frames, forced)
     torch.cuda.synchronize()
-    assert mk._megakernel_call.launches == before + 1
+    assert mk._megakernel_call.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
     want = mk.decode_megakernel_ref(cfg, plan, frames, forced)
     sp, V = cfg.num_special_tokens, cfg.vocab_size_audio
     g_, w_ = got.logits[:, :, sp:V], want.logits[:, :, sp:V]
@@ -173,6 +179,50 @@ def test_decode_megakernel_matches_plain_on_card(card, B, wd, kvd):
         want.ssm_state.abs().max())
     assert float((got.conv_state.float() - want.conv_state.float()).abs().max()) <= 3e-2 * float(
         want.conv_state.float().abs().max())
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 8])  # batch tiles 1, 2, 4, 8
+@pytest.mark.parametrize("wd,kvd", mk._DTYPE_LADDER)
+def test_decode_megakernel_matches_plain_on_card(card, B, wd, kvd):
+    cfg, plan, frames = _small_plan(card, B, wd, kvd)
+    # the plan the launch uses: the card's grid (120 blocks for clusters of 8
+    # on an H100) still holds 4 heads x 8 slices for up to 3 rows
+    lp = mk._card_plan(cfg, B, plan.K.shape[3], wd, kvd, card)
+    assert lp.cluster == mk.memory_slices(B, cfg.n_heads, lp.grid)
+    assert B > 3 or lp.cluster == 8
+    _versus_plain(card, cfg, plan, frames, B)
+
+
+@pytest.mark.parametrize("wd,kvd", [mk._DTYPE_LADDER[0], mk._DTYPE_LADDER[2]])
+@pytest.mark.parametrize("ts", [8, 4, 2])
+def test_decode_megakernel_each_cluster_size_on_card(card, ts, wd, kvd):
+    """Every cluster size the plan picks, as the card launches it
+    (``_card_plan``, on the grid the occupancy query allows): the first small
+    case (4 heads of 16 or 8 heads of 16, B = 1..8) whose launch uses
+    clusters of ``ts``."""
+    cases = [(d, H, B) for d, H in ((64, 4), (128, 8)) for B in range(1, 9)]
+    found = [c for c in cases
+             if mk._card_plan(_small_cfg(c[0], c[1]), c[2], 128, wd, kvd, card).cluster == ts]
+    assert found, f"no small case launches clusters of {ts} on this card"
+    d, H, B = found[0]
+    cfg, plan, frames = _small_plan(card, B, wd, kvd, d=d, H=H)
+    assert mk._card_plan(cfg, B, plan.K.shape[3], wd, kvd, card).cluster == ts
+    _versus_plain(card, cfg, plan, frames, B)
+
+
+@pytest.mark.parametrize("wd,kvd", [mk._DTYPE_LADDER[0], mk._DTYPE_LADDER[2]])
+@pytest.mark.parametrize("d,H,B", [(128, 8, 8), (96, 6, 3)])
+def test_decode_megakernel_cluster_and_ownership_cases_on_card(card, d, H, B, wd, kvd):
+    """8 heads of 16 at B = 8: clusters of 2, as the full-width B = 8 tile
+    launches.  d_inner 192 over the grid: blocks own one or two channels."""
+    cfg, plan, frames = _small_plan(card, B, wd, kvd, d=d, H=H)
+    lp = mk._card_plan(cfg, B, plan.K.shape[3], wd, kvd, card)
+    di = cfg.with_mamba_dims().mamba.d_inner
+    if d == 128:
+        assert lp.cluster == 2
+    else:
+        assert di % lp.grid and len({b - a for a, b in zip(lp.chan[:-1], lp.chan[1:])}) == 2
+    _versus_plain(card, cfg, plan, frames, B)
 
 
 def test_decode_megakernel_feedback_is_exact_on_card(card):
@@ -191,13 +241,16 @@ def test_decode_megakernel_feedback_is_exact_on_card(card):
 
 
 def test_decode_megakernel_stage_clocks_on_card(card):
-    """The diagnostic stamps: two per grid barrier of the middle step, rising,
-    and the logits do not depend on whether they are taken."""
+    """The diagnostic stamps: the step's start and two per grid barrier of the
+    middle step, all written and rising, none beyond them, and the logits do
+    not depend on whether they are taken."""
     cfg, plan, frames = _small_plan(card, 1, "bfloat16", "bfloat16")
-    n = 2 * len(mk.stage_names(cfg))
-    clocks = torch.zeros(n, dtype=torch.int64, device=card)
+    n = mk.stage_clock_count(cfg)
+    assert n == 1 + 2 * (7 * cfg.n_layers + 1)
+    clocks = torch.zeros(n + 16, dtype=torch.int64, device=card)
     with_clocks = mk._megakernel_call(cfg, plan, frames, stage_clocks=clocks).logits
-    stamps = clocks.cpu()
+    stamps, spare = clocks[:n].cpu(), clocks[n:].cpu()
+    assert bool((stamps > 0).all()) and bool((spare == 0).all())
     assert bool((stamps[1:] > stamps[:-1]).all())
     assert torch.equal(with_clocks, mk._megakernel_call(cfg, plan, frames).logits)
     with pytest.raises(ValueError, match="stage_clocks"):
@@ -211,6 +264,19 @@ def test_decode_megakernel_rejects_what_the_kernel_does_not_take(card):
         mk._megakernel_call(cfg, big, frames)
     with pytest.raises(ValueError, match="forced tokens"):
         mk._megakernel_call(cfg, plan, frames, torch.zeros((3, 1), dtype=torch.int32, device=card))
+
+
+def test_decode_megakernel_barriers_on_card(card):
+    """The probes of ``mamba_tts_torch/diag/card_probes.py``: each barrier
+    kind runs to its end on a grid of clusters of 8, and the L2 read rate is
+    finite and positive."""
+    from mamba_tts_torch.diag import card_probes
+
+    lib = card_probes._library()
+    for mode in card_probes.BARRIERS:
+        cycles, grid = card_probes.barrier(lib, mode, 100)
+        assert cycles > 0 and grid % 8 == 0
+    assert 0 < card_probes.l2_read_rate(lib, 8, reps=4) < float("inf")
 
 
 def test_full_sequence_paths_launch_kernels_on_card(card):

@@ -323,7 +323,7 @@ def test_plan_resident_bytes_matches_real_plan(pair2, sampled, teacher_force):
     for wd, kvd in RUNGS:
         plan = tmk._build_plan(c, p.tq, KV, mm, films, F, weight_dtype=wd, kv_dtype=kvd)
         held = list(tmk._kernel_operands(plan).values())
-        held += list(tmk._call_buffers(c, p.B, memory_len, p.total, "cpu").values())
+        held += list(tmk._call_buffers(c, p.B, p.total, "cpu").values())
         if sampled:
             held.append(torch.empty((p.total, p.B, Vpad), dtype=torch.float32))
         if teacher_force:
@@ -397,3 +397,203 @@ def test_wrapper_launches_or_raises_for_card_tensors(pair1, monkeypatch):
     with pytest.raises(ValueError, match="B <= 8"):
         big = plan._replace(K=plan.K.repeat(1, 9, 1, 1), V=plan.V.repeat(1, 9, 1, 1))
         tmk.check_kernel_args(pair1.tcfg, tmk._kernel_operands(big))
+
+
+# ------------------------------------------ the redesigned kernel's launch plan
+
+
+@pytest.mark.parametrize("wd,kvd", RUNGS)
+def test_launch_plan_owners_and_shared_memory(wd, kvd):
+    """Every d_inner channel and every output column of every product has
+    exactly one owning block; each (row, head) unit's ranks split the head's
+    q columns; resident slices plus the working set fit a block's shared
+    memory; the cluster divides the grid and equals ``memory_slices``.  At
+    the small config and at full width, at a 1,536-position memory and at
+    the largest one (the position table plus the padded text), on the
+    default grid and on the 120 blocks an H100 keeps resident in clusters
+    of 8."""
+    from mamba_tts_torch.config import TTSConfig
+
+    full = TTSConfig()
+    cases = [(_cfgs()[1], (T_REF + T_TEXT,)),
+             (full.decoder, (1536, full.decoder.max_len + full.data.max_text_len))]
+    for cfg, memories in cases:
+        c = cfg.with_mamba_dims()
+        m = c.mamba
+        d, di, dff, H = c.d_model, m.d_inner, c.d_ff, c.n_heads
+        hd, Vpad = d // H, -(-c.vocab_size_audio // 128) * 128
+        for M in memories:
+            Tmp = -(-M // 128) * 128
+            for B in range(1, 9):
+                for grid in (None, 120):
+                    lp = tmk.launch_plan(c, B, Tmp, wd, kvd, grid=grid)
+                    G = lp.grid
+                    assert G % lp.cluster == 0 and lp.clusters == G // lp.cluster
+                    assert lp.cluster == tmk.memory_slices(B, H, G)
+                    for bounds, n in ((lp.chan, di), (lp.cols["in_w"], 2 * di),
+                                      (lp.cols["out_w"], d), (lp.cols["o_w"], d),
+                                      (lp.cols["ff2_w"], d), (lp.cols["ff1_w"], dff),
+                                      (lp.cols["head_w"], Vpad)):
+                        assert len(bounds) == G + 1 and bounds[0] == 0 and bounds[-1] == n
+                        assert all(a <= b for a, b in zip(bounds[:-1], bounds[1:]))
+                    # q: unit u = (b, h) on cluster u % clusters, rank r owns r*qc .. (r+1)*qc
+                    assert lp.q_cols * lp.cluster == hd and lp.units == B * H
+                    owned = {}
+                    for u in range(lp.units):
+                        for r in range(lp.cluster):
+                            for j in range(r * lp.q_cols, (r + 1) * lp.q_cols):
+                                key = (u // H, (u % H) * hd + j)
+                                assert key not in owned
+                                owned[key] = (u % lp.clusters, r)
+                    assert len(owned) == B * d
+                    assert lp.smem_bytes + tmk._STATIC_SMEM <= 232_448
+                    if "q_w" in lp.resident:
+                        assert lp.units <= lp.clusters
+    assert len(tmk.stage_names(full.decoder)) <= 66
+    assert len(tmk.stage_names(full.decoder)) == 7 * full.decoder.n_layers + 1
+
+
+def test_kernel_operands_in_proj_block_major(pair1):
+    """in_proj's rows (x and z columns of the plan) are a permutation that
+    puts each block's x columns and then its z columns together, for any
+    grid, and the plan's bytes are unchanged."""
+    p = pair1
+    plan = tmk._build_plan(p.tcfg, p.tq, *p.torch_memories(), F, weight_dtype="int8")
+    di = plan.in_w.shape[2] // 2
+    for grid in (128, 120, 7):
+        ops = tmk._kernel_operands(plan, grid)
+        chan = tmk._bounds(di, grid)
+        seen = []
+        for g in range(grid):
+            lo, hi = chan[g], chan[g + 1]
+            cols = list(range(lo, hi)) + list(range(di + lo, di + hi))
+            rows = ops["in_w"][:, 2 * lo:2 * hi]
+            assert torch.equal(rows, plan.in_w[:, :, cols].transpose(1, 2))
+            assert torch.equal(ops["in_s"][:, 2 * lo:2 * hi], plan.in_s[:, 0, cols])
+            seen += cols
+        assert sorted(seen) == list(range(2 * di))
+        assert sum(t.numel() * t.element_size() for t in ops.values()) == sum(
+            t.numel() * t.element_size() for t in tmk._kernel_operands(plan).values())
+
+
+# --------------------- a plain emulation of the redesigned kernel's dataflow
+
+
+def _emulate(cfg, plan, frames, lp, forced=None):
+    """The kernel's dataflow in plain PyTorch, at decode_megakernel_ref's
+    rounding points: the x-projection as per-block partial sums over each
+    block's channels, added in rank order within each cluster and then in
+    cluster order; attention split into the cluster's memory slices, each
+    slice's max and sum exchanged, probabilities rounded with the global max
+    and sum, and the slices' P @ V parts added in rank order."""
+    c = cfg
+    m = c.with_mamba_dims().mamba
+    L, di, N, H, dc = c.n_layers, m.d_inner, m.d_state, c.n_heads, m.d_conv
+    r = m.dt_rank_actual
+    p = plan
+    BF, F32 = torch.bfloat16, torch.float32
+    B, d, Tmp = p.K.shape[1], p.K.shape[2], p.K.shape[3]
+    hd, TS = d // H, lp.cluster
+    Tc = Tmp // TS
+    total = c.num_quantizers * frames
+    xp = torch.cat([p.xp_dt, p.xp_B, p.xp_C], dim=2).to(F32)  # (L, di, r + 2N)
+    conv_s = torch.zeros((L, dc - 1, B, di), dtype=BF)
+    ssm_s = torch.zeros((L, B, N, di), dtype=F32)
+    token = torch.full((B,), c.bos_id, dtype=torch.long)
+    out = []
+    for t in range(total):
+        if forced is not None:
+            token = forced[t].to(torch.long)
+        x = p.token_embed[token] + p.emb_pq[t]
+        for l in range(L):
+            nb = p.norms[l]
+            xz = tmk._dq_dot(tmk._ln(x, nb[0], nb[1]), p.in_w[l], p.in_s[l])
+            xin, z = xz[:, :di], xz[:, di:]
+            conv_out = xin * p.conv_w[l, dc - 1]
+            for k in range(dc - 1):
+                conv_out = conv_out + conv_s[l, k] * p.conv_w[l, k]
+            conv_out = conv_out + p.conv_b[l].to(BF)
+            for k in range(dc - 2):
+                conv_s[l, k] = conv_s[l, k + 1]
+            conv_s[l, dc - 2] = xin
+            xc = tmk._silu(conv_out)
+            parts = [xc[:, a:b].to(F32) @ xp[l, a:b] for a, b in zip(lp.chan[:-1], lp.chan[1:])]
+            total_sum = torch.zeros_like(parts[0])
+            for k in range(lp.clusters):  # clusters in order, each its ranks in order
+                cl = torch.zeros_like(parts[0])
+                for q in range(TS):
+                    cl = cl + parts[k * TS + q]
+                total_sum = total_sum + cl
+            dbc = total_sum.to(BF)
+            dt = tmk._softplus(tmk._dot_bf16(dbc[:, :r], p.dt_w[l]).to(F32) + p.dt_b[l])
+            Bm, Cm = dbc[:, r:r + N].to(F32), dbc[:, r + N:].to(F32)
+            dtx = dt * xc.to(F32)
+            h_new = torch.exp(dt[:, None, :] * p.A[l][None]) * ssm_s[l] + Bm[:, :, None] * dtx[:, None, :]
+            ssm_s[l] = h_new
+            y = ((Cm[:, :, None] * h_new).sum(dim=1) + xc.to(F32) * p.D[l]).to(BF)
+            x = x + tmk._dq_dot(y * tmk._silu(z), p.out_w[l], p.out_s[l])
+            q_all = tmk._dq_dot(tmk._ln(x, nb[2], nb[3]), p.q_w[l], p.q_s[l], p.q_b[l])
+            qk = (q_all.to(F32) * p.k_scale[l, :, 0]).to(BF).to(F32).view(B, H, hd)
+            S = torch.einsum("bhj,bhjt->bht", qk, p.K[l].to(F32).view(B, H, hd, Tmp))
+            S = S * hd ** -0.5 + p.mask_row[:, None, :]
+            Sl = [S[..., q * Tc:(q + 1) * Tc] for q in range(TS)]
+            gmax = torch.stack([s_.max(-1).values for s_ in Sl]).max(0).values[..., None]
+            El = [torch.exp(s_ - gmax) for s_ in Sl]
+            gsum = torch.zeros_like(gmax)
+            for e in El:
+                gsum = gsum + e.sum(-1, keepdim=True)
+            Vl = p.V[l].to(F32).view(B, Tmp, H, hd)
+            O = torch.zeros((B, H, hd), dtype=F32)
+            for q, e in enumerate(El):
+                O = O + torch.einsum("bht,bthj->bhj", (e / gsum).to(BF).to(F32),
+                                     Vl[:, q * Tc:(q + 1) * Tc])
+            attn = (O.reshape(B, d) * p.v_scale[l, :, 0]).to(BF)
+            x = x + tmk._dq_dot(attn, p.o_w[l], p.o_s[l], p.o_b[l])
+            hh = tmk._ln(x, nb[4], nb[5])
+            hh = p.gamma[l].to(BF) * hh + p.beta[l].to(BF)
+            x = x + tmk._dq_dot(tmk._gelu_exact(tmk._dq_dot(hh, p.ff1_w[l], p.ff1_s[l], p.ff1_b[l])),
+                                p.ff2_w[l], p.ff2_s[l], p.ff2_b[l])
+        logits = tmk._ln(x, p.norm_out[0], p.norm_out[1]).to(F32) @ p.head_w.to(F32) + p.head_b
+        out.append(logits)
+        if forced is None:
+            token = tmk._first_argmax(logits)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("batch,grid", [(1, 128), (2, 40), (2, 7)])
+@pytest.mark.parametrize("wd,kvd", RUNGS)
+def test_emulated_dataflow_matches_ref_and_jax_kernel(pair1, pair2, wd, kvd, batch, grid):
+    """The emulation of the kernel's dataflow against the plain version and
+    the JAX kernel (interpret mode), teacher-forced on the same tokens:
+    relative max logit error <= 3e-2 and argmax agreement >= 90% (the
+    megakernel's limits); clusters of 8 (B = 1), 4 (B = 2 on 40 blocks) and
+    1 (B = 2 on 7 blocks: channels spread unevenly)."""
+    p = pair1 if batch == 1 else pair2
+    tKV, tmm, tfilms = p.torch_memories()
+    plan = tmk._build_plan(p.tcfg, p.tq, tKV, tmm, tfilms, F, weight_dtype=wd, kv_dtype=kvd)
+    lp = tmk.launch_plan(p.tcfg, batch, plan.K.shape[3], wd, kvd, grid=grid)
+    assert lp.cluster == {128: 8, 40: 4, 7: 1}[grid]
+    forced = _t(p.forced.T)
+    got = _emulate(p.tcfg, plan, F, lp, forced)
+    want = tmk.decode_megakernel_ref(p.tcfg, plan, F, forced_tokens=forced).logits
+    res = jmk.megakernel_greedy_decode(
+        p.jdec, p.variables, p.jq, p.th, p.z, F, collect_logits=True, interpret=True,
+        forced_tokens=jnp.asarray(p.forced), weight_dtype=wd, kv_dtype=kvd, **p.jax_kw())
+    sp, V = p.jcfg.num_special_tokens, p.jcfg.vocab_size_audio
+    g = got.transpose(0, 1)[:, :, :V].numpy()
+    for want_ in (want.transpose(0, 1)[:, :, :V].numpy(), np.asarray(res.logits, np.float32)):
+        rel, agree = _rel(g, want_, sp)
+        assert rel <= 3e-2, rel
+        assert agree >= 0.9, agree
+
+
+def test_emulated_feedback_is_exact(pair1):
+    """A free run of the emulation and its teacher-forced rerun on the tokens
+    it chose give equal logits: the fed-back token is the argmax."""
+    p = pair1
+    plan = tmk._build_plan(p.tcfg, p.tq, *p.torch_memories(), F)
+    lp = tmk.launch_plan(p.tcfg, 1, plan.K.shape[3])
+    free = _emulate(p.tcfg, plan, F, lp)
+    tokens = free.argmax(-1)
+    forced = torch.cat([torch.full((1, 1), p.tcfg.bos_id), tokens[:-1]])
+    assert torch.equal(_emulate(p.tcfg, plan, F, lp, forced), free)
