@@ -78,9 +78,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              max logit error <= 3e-2 and argmax agreement >= 90% over all
              steps and over the last 1,024.
 9. scan kernels — the selective-scan forward, checkpointing forward and
-             backward kernels against their plain versions at B=2, T=5,120
-             (the flagship's flattened grid), D=1,024, N=16, bf16 u/B/C, and at
-             a ragged T=5,117 with a given h0; µs per launch, plain, bound.
+             backward wrappers against their plain versions at B=2 and B=8,
+             T=5,120 (the flagship's flattened grid), D=1,024, N=16, bf16
+             u/B/C, and at a ragged T=5,117 with a given h0 (the two
+             forwards bit-identical, backward reruns bit-identical); ms per
+             call with the SM clock, each wrapper's device kernels (three
+             launches a direction), the plain version's ms and the bound (the
+             largest of bytes, FMA-pipe operations and one exp per element
+             on the special-function units).
 10. flash kernels — forward and backward against autograd through the plain
              materialized softmax at B=2, H=8, Tq=5,120, Tk=5,376 (a third of
              one row's keys masked) and a ragged Tq=640, Tk=1,427; µs per
@@ -109,6 +114,7 @@ Without a card, or without the repository beside it, it exits non-zero and
 prints no result.
 """
 import copy
+import dataclasses
 import json
 import pathlib
 import re
@@ -947,8 +953,11 @@ def phase_megakernel_flagship(torch, synth, frames=1024, tail=1024, window=512):
 
 # ------------------------------------------------------------------ training
 
-F32_OPS_PER_S = 67e12  # f32 outside the tensor cores (exp counted as one operation)
-SCAN_OPS = {"fwd": 7, "bwd": 26}  # f32 operations per (b, t, d, n), exps included
+F32_OPS_PER_S = 67e12  # f32 on the FMA pipe, outside the tensor cores
+SCAN_OPS = {"fwd": 6, "bwd": 24}  # FMA-pipe f32 operations per (b, t, d, n); exps apart
+# exps on the special-function units: 16 a clock on each of the 132 SMs at the
+# 1.98 GHz boost clock (H100 SXM)
+MUFU_EXPS_PER_S = 132 * 16 * 1.98e9
 TRAIN_KERNELS = ("selective_scan_fwd", "selective_scan_fwd_ckpt", "selective_scan_bwd",
                  "flash_attention_fwd", "flash_attention_bwd")
 _SCAN_CU, _FLASH_CU = ("mamba_tts_torch/ops/csrc/selective_scan.cu",
@@ -1006,30 +1015,87 @@ def _scan_inputs(torch, B, T, D, N, seed, with_h0):
     return u, delta, A, Bm, Cm, torch.ones(D, device="cuda"), h0
 
 
-def phase_scan_kernels(torch, B=2, T=5120, D=1024, N=16):
-    """The three scan kernels against their plain versions at the flagship's
-    flattened grid (T = 5 x 1,024) and a ragged T with a given h0; µs per
-    launch by CUDA events.  Limits: y (bf16) within 1e-2 of its largest
-    magnitude (one bf16 ulp); h_T and ckpt (f32, another exp and summation
-    order) within 1e-4; the backward's f32 outputs within 1e-3."""
+def sm_clock():
+    """The SM clock now and its maximum, as nvidia-smi reports them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def kernels_per_call(torch, fn):
+    """The scan kernels one call of ``fn`` runs on the device: (name, ms,
+    calls).  The call sits between two 20 ms sleep kernels inside the
+    profiler window, after an uncounted window that starts the device
+    tracer, so that no kernel falls outside the window's edges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gap = int(0.02 * 2.0e9)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(gap)
+            fn()
+            torch.cuda._sleep(gap)
+            torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and "scan" in e.key:
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            rows.append({"kernel": e.key[:70], "ms": us / 1e3, "calls": e.count})
+    return rows
+
+
+def _scan_bound(k, B, T, D, N, chunk):
+    """(bound ms, what sets it, bytes) of one call of scan wrapper ``k``: each
+    input read once and each output written once over HBM_BYTES_PER_S, its
+    FMA-pipe operations over F32_OPS_PER_S, and one exp per (b, t, d, n) over
+    the special-function units' rate; the largest of the three."""
+    nc = -(-T // chunk)
+    io = B * T * D * (2 + 4) + 2 * B * T * N * 2 + D * N * 4 + D * 4  # u, dt, B, C, A, D
+    nbytes = {"selective_scan_fwd": io + B * T * D * 2 + B * N * D * 4,
+              "selective_scan_fwd_ckpt": io + B * T * D * 2 + B * N * D * 4 + B * nc * N * D * 4,
+              "selective_scan_bwd": io - D * 4 + B * nc * N * D * 4 + B * T * D * 4 + B * N * D * 4
+              + 2 * B * T * D * 4 + 2 * B * T * N * 4 + 2 * B * N * D * 4}[k]
+    elems = B * T * D * N
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": SCAN_OPS["bwd" if k.endswith("bwd") else "fwd"] * elems / F32_OPS_PER_S * 1e3,
+             "exps": elems / MUFU_EXPS_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by, nbytes, times
+
+
+def phase_scan_kernels(torch, T=5120, D=1024, N=16):
+    """The three scan wrappers against their plain versions at the flagship's
+    flattened grid (T = 5 x 1,024) at B = 2 and at B = 8 (the flagship
+    training step's rows), and at a ragged T with a given h0; ms per call by
+    CUDA events with the SM clock beside them, each wrapper's device kernels,
+    and the bound.  Limits: y (bf16) within 1e-2 of its largest magnitude
+    (one bf16 ulp); h_T and ckpt (f32, another exp and summation order)
+    within 1e-4; the backward's f32 outputs within 1e-3.  The two forwards
+    must give bit-identical y and h_T, and the backward bit-identical reruns."""
     from mamba_tts_torch.ops import pallas_scan as ps
 
     out = {k: {"max_abs_err": 0.0} for k in TRAIN_KERNELS[:3]}
-    for T_, with_h0 in ((T, False), (T - 3, True)):
-        u, delta, A, Bm, Cm, Dsk, h0 = _scan_inputs(torch, B, T_, D, N, seed=T_, with_h0=with_h0)
+    for B, T_, with_h0 in ((2, T, False), (2, T - 3, True), (8, T, False)):
+        u, delta, A, Bm, Cm, Dsk, h0 = _scan_inputs(torch, B, T_, D, N, seed=T_ + B, with_h0=with_h0)
         y, hT = ps.selective_scan_fwd(u, delta, A, Bm, Cm, Dsk, h0)
         y2, hT2, ck = ps.selective_scan_fwd_ckpt(u, delta, A, Bm, Cm, Dsk, h0)
         plain_fwd_ms, (y_w, hT_w, ck_w) = _events_ms(
             torch, lambda: ps.scan_ckpt_ref(u, delta, A, Bm, Cm, Dsk, h0))
         check(torch.equal(y, y2) and torch.equal(hT, hT2), "scan: the two forward kernels differ")
         errs = {"y": _errs(y, y_w), "h_T": _errs(hT, hT_w), "ckpt": _errs(ck, ck_w)}
+        del y_w, hT_w
         g = torch.Generator(device="cuda").manual_seed(1)
         dy = torch.randn((B, T_, D), generator=g, device="cuda")
         dhT = torch.randn((B, N, D), generator=g, device="cuda")
         got = ps.selective_scan_bwd(u, delta, A, Bm, Cm, ck, dy, dhT)
-        plain_bwd_ms, want = _events_ms(torch, lambda: ps.scan_bwd_ref(u, delta, A, Bm, Cm, ck, dy, dhT))
+        again = ps.selective_scan_bwd(u, delta, A, Bm, Cm, ck, dy, dhT)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), "scan backward: reruns differ")
+        del again
+        plain_bwd_ms, want = _events_ms(torch, lambda: ps.scan_bwd_ref(u, delta, A, Bm, Cm, ck_w, dy, dhT))
         for name, a, b in zip("du ddt dB dC dA_b dh0".split(), got, want):
             errs[name] = _errs(a, b)
+        del got, want, ck_w
         emit({"phase": "scan_kernels", "B": B, "T": T_, "D": D, "N": N, "h0": with_h0,
               "abs_and_rel_errors": errs, "limits": {"y": 1e-2, "h_T": 1e-4, "ckpt": 1e-4, "grads": 1e-3}})
         check(errs["y"][1] <= 1e-2, f"scan y: relative error {errs['y'][1]}")
@@ -1045,31 +1111,32 @@ def phase_scan_kernels(torch, B=2, T=5120, D=1024, N=16):
             out["selective_scan_bwd"]["max_abs_err"], *(errs[k][0] for k in "du ddt dB dC dA_b dh0".split()))
         if T_ != T:
             continue
-        nc = -(-T // ps.CHUNK)
-        io = B * T * D * (2 + 4) + 2 * B * T * N * 2 + D * N * 4 + D * 4  # u, dt, B, C, A, D
-        nbytes = {"selective_scan_fwd": io + B * T * D * 2 + B * N * D * 4,
-                  "selective_scan_fwd_ckpt": io + B * T * D * 2 + B * N * D * 4 + B * nc * N * D * 4,
-                  "selective_scan_bwd": io - D * 4 + B * nc * N * D * 4 + B * T * D * 4 + B * N * D * 4
-                  + 2 * B * T * D * 4 + 2 * B * T * N * 4 + 2 * B * N * D * 4}
-        ops = {"selective_scan_fwd": SCAN_OPS["fwd"], "selective_scan_fwd_ckpt": SCAN_OPS["fwd"],
-               "selective_scan_bwd": SCAN_OPS["bwd"]}
-        times = {
-            "selective_scan_fwd": device_ms(torch, lambda i: ps.selective_scan_fwd(u, delta, A, Bm, Cm, Dsk), 20),
-            "selective_scan_fwd_ckpt": device_ms(
-                torch, lambda i: ps.selective_scan_fwd_ckpt(u, delta, A, Bm, Cm, Dsk), 20),
-            "selective_scan_bwd": device_ms(
-                torch, lambda i: ps.selective_scan_bwd(u, delta, A, Bm, Cm, ck, dy, dhT), 10)}
+        calls = {"selective_scan_fwd": lambda: ps.selective_scan_fwd(u, delta, A, Bm, Cm, Dsk),
+                 "selective_scan_fwd_ckpt": lambda: ps.selective_scan_fwd_ckpt(u, delta, A, Bm, Cm, Dsk),
+                 "selective_scan_bwd": lambda: ps.selective_scan_bwd(u, delta, A, Bm, Cm, ck, dy, dhT)}
+        clock_before = sm_clock()
+        times = {k: device_ms(torch, lambda i, f=f: f(), 20 if "fwd" in k else 10) for k, f in calls.items()}
+        clock_after = sm_clock()
         plain = {"selective_scan_fwd": plain_fwd_ms, "selective_scan_fwd_ckpt": plain_fwd_ms,
                  "selective_scan_bwd": plain_bwd_ms}
+        row = {}
         for k in times:
-            by_bytes = nbytes[k] / HBM_BYTES_PER_S * 1e3
-            by_ops = ops[k] * B * T * D * N / F32_OPS_PER_S * 1e3
-            out[k].update(ms=times[k], plain_ms=plain[k], bound_ms=max(by_bytes, by_ops),
-                          bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=None,
-                          bytes=nbytes[k], exps=(1 if "fwd" in k else 2) * B * T * D * N,
-                          at=f"B={B}, T={T}, D={D}, N={N}, bf16 u/B/C, f32 dt")
-        emit({"phase": "scan_kernels", "times_ms": times, "plain_ms": plain,
-              "bound_ms": {k: out[k]["bound_ms"] for k in times}})
+            bound, by, nbytes, parts = _scan_bound(k, B, T, D, N, ps.CHUNK)
+            row[k] = dict(ms=times[k], plain_ms=plain[k], bound_ms=bound, bound_by=by,
+                          bound_parts_ms=parts, bytes=nbytes, times_bound=times[k] / bound)
+        plan = ps.scan_launch_plan(B, T, D, N)
+        emit({"phase": "scan_kernels", "B": B, "T": T, "times": row, "sm_clock_before_after": [clock_before, clock_after],
+              "device_kernels_per_call": {k: kernels_per_call(torch, f) for k, f in calls.items()},
+              "launch_plan": {f: dataclasses.asdict(getattr(plan, f)) for f in
+                              ("fwd_summary", "fwd_carry", "fwd_output", "bwd_summary", "bwd_carry", "bwd_grad")}})
+        for k, r in row.items():
+            if B == 2:
+                out[k].update(r, library_ms=None, at=f"B=2, T={T}, D={D}, N={N}, bf16 u/B/C, f32 dt",
+                              sm_clock=clock_after)
+            else:
+                out[k]["B8"] = dict(r, sm_clock=clock_after)
+        del u, delta, Bm, Cm, ck, dy, dhT, y, y2, hT, hT2
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1294,12 +1361,16 @@ def phase_flagship_step(torch, tmp, steps=3):
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     ours = [e for e in kernels if re.search(
-        r"::(scan_fwd|scan_bwd|flash_fwd|flash_bwd_dkdv|flash_bwd_dq|flash_bwd_delta)\b", e.key)]
+        r"::(scan_fwd_summary|scan_fwd_output|scan_bwd_summary|scan_bwd_grad|scan_carry"
+        r"|flash_fwd|flash_bwd_dkdv|flash_bwd_dq|flash_bwd_delta)\b", e.key)]
+    scan_ms = sum(dev_us(e) for e in ours if "::scan_" in e.key) / 1e3
     tokens = B * 1024 * Q
     row = {"phase": "flagship_step", "B": B, "Tq": 1024 * Q, "Tk": 1024 * Q + cfg.data.max_text_len,
            "ms_per_step": wall * 1e3, "target_tokens_per_s": tokens / wall,
            "max_memory_allocated_gb": peak / 1e9, "kernel_calls_per_step": per_step,
            "profiled_step_ms": prof_wall_ms, "device_busy_ms": busy_ms or None,
+           "scan_device_ms": scan_ms, "scan_share_of_busy": scan_ms / busy_ms if busy_ms else None,
+           "sm_clock": sm_clock(),
            "device_idle_share": 1 - busy_ms / prof_wall_ms if busy_ms else None,
            "losses": losses,
            "top_kernels": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3, "calls": e.count}
@@ -1324,8 +1395,6 @@ def phase_card_vs_cpu(torch, frames=128):
     products' inputs, the scan kernels keep f32 states, where the plain path
     rounds elsewhere).  Then 10 steps on a fixed batch on the card must lower
     the codec loss."""
-    import dataclasses
-
     import numpy as np
 
     from mamba_tts_torch.config import TTSConfig

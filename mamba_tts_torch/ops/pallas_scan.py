@@ -2,8 +2,11 @@
 the autograd binding.
 
 Counterpart of ``mamba_tts_tpu/ops/pallas_scan.py`` (the name is kept so a
-reader finds the TPU kernels this module replaces).  Three kernels of
-``csrc/selective_scan.cu``, each behind a wrapper that counts its launches:
+reader finds the TPU kernels this module replaces).  The kernels of
+``csrc/selective_scan.cu`` are chunk-parallel over the checkpoints: each
+direction is a summary, a carry and an output (forward) or gradient
+(backward) launch, laid out by :func:`scan_launch_plan`.  Three wrappers run
+them and count their calls:
 
 - :func:`selective_scan_fwd`      — forward without checkpoints (replaces
   ``_scan_kernel``, ``pallas_scan.py:36``): the no-gradient forward.
@@ -25,14 +28,20 @@ Layouts: u, delta (B, T, D); A (D, N); B, C (B, T, N); D (D,); states
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 CHUNK = 64  # time steps between checkpoints (the JAX package's default)
-SLICE = 16  # channels per block of the kernels: dB/dC partials per slice
+CHUNKS = (16, 64)  # the chunk sizes the kernels are built for
+SLICE = 16  # channels per block of the gradient pass: one dB/dC slice
+ROW_THREADS = 256  # channels per block of the summaries and the output pass
+SEGMENT = 8  # backward: steps whose recomputed states a thread holds at once
 STATE_SIZES = (2, 4, 8, 16)  # d_state values the kernels take
-MAX_SMEM_BYTES = 232_448  # dynamic shared memory one H100 block may use
+MAX_CLUSTER = 8  # portable thread-block cluster size
+SMEM_PER_SM = 233_472  # shared memory of an H100 SM (228 KB)
+CARRY_THREADS = 256
 
 
 def _f32(*ts):
@@ -100,10 +109,10 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("selective_scan")
     if not getattr(lib, "_argtypes_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.selective_scan_fwd_launch.argtypes = [p] * 10 + [i] * 6 + [p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.selective_scan_fwd_launch.argtypes = [p] * 11 + [i] * 6 + [ll] * 2 + [p]
         lib.selective_scan_fwd_launch.restype = i
-        lib.selective_scan_bwd_launch.argtypes = [p] * 14 + [i] * 6 + [p]
+        lib.selective_scan_bwd_launch.argtypes = [p] * 16 + [i] * 7 + [ll] * 2 + [p]
         lib.selective_scan_bwd_launch.restype = i
         lib.selective_scan_error_string.argtypes = [i]
         lib.selective_scan_error_string.restype = ctypes.c_char_p
@@ -111,10 +120,85 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _bwd_smem_bytes(N: int, chunk: int) -> int:
-    """Mirrors ``bwd_smem`` in the CUDA source."""
-    threads = SLICE * N
-    return 4 * (chunk * threads + 5 * chunk * SLICE + 2 * chunk * N + 2 * chunk * (threads // 32) * N)
+@dataclass(frozen=True)
+class ScanPass:
+    """One launch of a scan direction: its grid (x, y, z), threads a block,
+    thread-block cluster along x, dynamic shared memory a block and blocks
+    resident on an SM."""
+    grid: Tuple[int, int, int]
+    threads: int
+    cluster: int
+    smem_bytes: int
+    resident: int
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """Both directions' launches (``csrc/selective_scan.cu``): summary, carry
+    and output (forward) or gradient (backward) passes.  ``partial_slices``
+    is the number of dB/dC partials the backward writes (one per cluster of
+    channel slices); it writes one dA partial per chunk."""
+    fwd_summary: ScanPass
+    fwd_carry: ScanPass
+    fwd_output: ScanPass
+    bwd_summary: ScanPass
+    bwd_carry: ScanPass
+    bwd_grad: ScanPass
+    partial_slices: int
+
+
+def _pass_smem(kind: str, N: int, chunk: int, cluster: int = 1) -> int:
+    """Dynamic shared memory of a chunk-parallel pass, in bytes; mirrors the
+    ``*_floats`` layouts of the CUDA source."""
+    if kind in ("fwd_summary", "bwd_summary"):  # B (or C) of a chunk
+        floats = chunk * N
+    elif kind == "fwd_output":  # B and C
+        floats = 2 * chunk * N
+    elif kind == "bwd_grad":
+        row = chunk + 4  # padded [channel][t] tile stride
+        units = SEGMENT * 2 * N // 4
+        slot = 4 * -(-units // cluster)
+        floats = (3 * SLICE * row + 2 * chunk * N + (chunk // SEGMENT) * SLICE * N
+                  + SEGMENT * N * N + 2 * SEGMENT * SLICE + 2 * N * SLICE + 2 * cluster * slot)
+    else:
+        raise ValueError(kind)
+    return 4 * floats
+
+
+def _resident(threads: int, smem: int, reg_cap: bool = True) -> int:
+    """Blocks an H100 SM keeps resident: 2,048 threads, 32 blocks, 228 KB of
+    shared memory (1 KB reserved a block) and, for the chunk-parallel passes
+    (``__launch_bounds__(256, 4)``: at most 64 registers a thread), 64 K
+    registers."""
+    by_regs = 65536 // (64 * threads) if reg_cap else 32
+    return min(2048 // threads, 32, by_regs, SMEM_PER_SM // (smem + 1024))
+
+
+def scan_launch_plan(B: int, T: int, D: int, N: int, chunk: int = CHUNK) -> ScanPlan:
+    """The launches of both scan directions at this shape.  The summaries
+    and the forward's output pass give each thread one channel and its N
+    states (``ROW_THREADS`` channels a block).  The backward's gradient pass
+    gives each thread one (channel, n) of ``SLICE`` channels and puts the
+    blocks of consecutive slices of one (row, chunk) in a cluster of at
+    most 8 (``cluster`` = ceil(slices / ceil(slices / 8))).  Every block of
+    these passes takes one chunk (grid y); the carries walk the chunks in
+    series, one thread per (n, channel)."""
+    if N not in STATE_SIZES or chunk not in CHUNKS:
+        raise ValueError(f"scan kernel takes d_state in {STATE_SIZES} and chunk in {CHUNKS}")
+    nc, slices, cols = -(-T // chunk), -(-D // SLICE), -(-D // ROW_THREADS)
+    groups = -(-slices // MAX_CLUSTER)
+    cluster = -(-slices // groups)
+
+    def chunk_pass(kind, width, threads, S=1):
+        smem = _pass_smem(kind, N, chunk, S)
+        return ScanPass((width, nc, B), threads, S, smem, _resident(threads, smem))
+
+    carry = ScanPass((-(-N * D // CARRY_THREADS), B, 1), CARRY_THREADS, 1, 0,
+                     _resident(CARRY_THREADS, 0, reg_cap=False))
+    return ScanPlan(chunk_pass("fwd_summary", cols, ROW_THREADS), carry,
+                    chunk_pass("fwd_output", cols, ROW_THREADS),
+                    chunk_pass("bwd_summary", cols, ROW_THREADS), carry,
+                    chunk_pass("bwd_grad", groups * cluster, SLICE * N, cluster), groups)
 
 
 def check_scan_args(u, delta, A, B, C, chunk, **states) -> None:
@@ -135,10 +219,8 @@ def check_scan_args(u, delta, A, B, C, chunk, **states) -> None:
         raise ValueError(f"scan kernel takes d_state in {STATE_SIZES}, got {N}")
     if B.shape != (Bz, T, N) or C.shape != (Bz, T, N):
         raise ValueError(f"scan kernel takes B, C (B, T, N); got {tuple(B.shape)}, {tuple(C.shape)}")
-    if T < 1 or chunk < 1:
-        raise ValueError(f"scan kernel needs T >= 1 and chunk >= 1, got T={T}, chunk={chunk}")
-    if _bwd_smem_bytes(N, chunk) > MAX_SMEM_BYTES:
-        raise ValueError(f"scan kernel: chunk={chunk} at d_state={N} exceeds a block's shared memory")
+    if T < 1 or chunk not in CHUNKS:
+        raise ValueError(f"scan kernel needs T >= 1 and chunk in {CHUNKS}, got T={T}, chunk={chunk}")
     for name, t in dict(u=u, delta=delta, A=A, B=B, C=C, **states).items():
         if t is None:
             continue
@@ -169,58 +251,67 @@ def _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt):
     check_scan_args(u, delta, A, B, C, chunk, D=D, h0=h0)
     Bz, T, Dm = u.shape
     N = A.shape[1]
+    plan = scan_launch_plan(Bz, T, Dm, N, chunk)
+    nc = -(-T // chunk)
+    f32 = dict(dtype=torch.float32, device=u.device)
     y = torch.empty_like(u)
-    hT = torch.empty((Bz, N, Dm), dtype=torch.float32, device=u.device)
-    ckpt = (torch.empty((Bz, -(-T // chunk), N, Dm), dtype=torch.float32, device=u.device)
-            if with_ckpt else None)
+    hT = torch.empty((Bz, N, Dm), **f32)
+    ws = torch.empty((Bz, nc, N, Dm), **f32)  # the chunk-start states: ckpt when asked for
+    sdt = torch.empty((Bz, nc, Dm), **f32)
     lib = _library()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.selective_scan_fwd_launch(
             u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            D.data_ptr(), _ptr(h0), y.data_ptr(), hT.data_ptr(), _ptr(ckpt), Bz, T, Dm, N,
-            chunk, int(u.dtype == torch.bfloat16), stream)
-    _raise_on(err, "selective_scan forward kernel")
-    return y, hT, ckpt
+            D.data_ptr(), _ptr(h0), y.data_ptr(), hT.data_ptr(), ws.data_ptr(), sdt.data_ptr(),
+            Bz, T, Dm, N, chunk, int(u.dtype == torch.bfloat16),
+            plan.fwd_summary.smem_bytes, plan.fwd_output.smem_bytes, stream)
+    _raise_on(err, "selective_scan forward kernels")
+    return y, hT, ws if with_ckpt else None
 
 
 def selective_scan_fwd(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK):
-    """Forward kernel without checkpoints: (y in ``u.dtype``, h_T f32)."""
+    """Forward kernels without checkpoints: (y in ``u.dtype``, h_T f32)."""
     y, hT, _ = _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt=False)
     selective_scan_fwd.launches += 1
     return y, hT
 
 
 def selective_scan_fwd_ckpt(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK):
-    """Forward kernel with checkpoints: (y, h_T, ckpt)."""
+    """Forward kernels with checkpoints: (y, h_T, ckpt)."""
     out = _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt=True)
     selective_scan_fwd_ckpt.launches += 1
     return out
 
 
 def selective_scan_bwd(u, delta, A, B, C, ckpt, dy, dhT, chunk: int = CHUNK):
-    """Backward kernel: (du, ddt, dB, dC, dA_b, dh0) as :func:`scan_bwd_ref`.
-    The kernel writes dB and dC per 16-channel slice; they are summed here
-    over the slices in a fixed order."""
+    """Backward kernels: (du, ddt, dB, dC, dA_b, dh0) as :func:`scan_bwd_ref`.
+    The kernels write dB and dC per cluster of channel slices and dA per
+    chunk; they are summed here in a fixed order."""
     check_scan_args(u, delta, A, B, C, chunk, ckpt=ckpt, dy=dy, dhT=dhT)
     Bz, T, Dm = u.shape
     N = A.shape[1]
-    slices = -(-Dm // SLICE)
+    plan = scan_launch_plan(Bz, T, Dm, N, chunk)
+    nc = -(-T // chunk)
     f32 = dict(dtype=torch.float32, device=u.device)
     du, ddt = torch.empty((Bz, T, Dm), **f32), torch.empty((Bz, T, Dm), **f32)
-    dBp, dCp = torch.empty((Bz, slices, T, N), **f32), torch.empty((Bz, slices, T, N), **f32)
-    dA_b, dh0 = torch.empty((Bz, N, Dm), **f32), torch.empty((Bz, N, Dm), **f32)
+    G = plan.partial_slices
+    dBp, dCp = torch.empty((Bz, G, T, N), **f32), torch.empty((Bz, G, T, N), **f32)
+    dAp = torch.empty((Bz, nc, N, Dm), **f32)
+    dh0 = torch.empty((Bz, N, Dm), **f32)
+    ws, sdt = torch.empty((Bz, nc, N, Dm), **f32), torch.empty((Bz, nc, Dm), **f32)
     lib = _library()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.selective_scan_bwd_launch(
             u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             ckpt.data_ptr(), dy.data_ptr(), dhT.data_ptr(), du.data_ptr(), ddt.data_ptr(),
-            dBp.data_ptr(), dCp.data_ptr(), dA_b.data_ptr(), dh0.data_ptr(), Bz, T, Dm, N,
-            chunk, int(u.dtype == torch.bfloat16), stream)
-    _raise_on(err, "selective_scan backward kernel")
+            dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(), dh0.data_ptr(), ws.data_ptr(),
+            sdt.data_ptr(), Bz, T, Dm, N, chunk, int(u.dtype == torch.bfloat16),
+            plan.bwd_grad.cluster, plan.bwd_summary.smem_bytes, plan.bwd_grad.smem_bytes, stream)
+    _raise_on(err, "selective_scan backward kernels")
     selective_scan_bwd.launches += 1
-    return du, ddt, dBp.sum(dim=1), dCp.sum(dim=1), dA_b, dh0
+    return du, ddt, dBp.sum(dim=1), dCp.sum(dim=1), dAp.sum(dim=1), dh0
 
 
 selective_scan_fwd.launches = 0

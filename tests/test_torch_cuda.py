@@ -327,17 +327,26 @@ def _rel(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1e-12))
 
 
+# (T, D, N, h0, chunk): ragged T (T < chunk, k * chunk +- 1), one chunk, every
+# d_state, D not a multiple of 16 x the cluster (clusters of 3, 4, 6 and 7
+# slices); D = 1,024 spans 8 clusters of 8 per (row, chunk)
+SCAN_CASES = [(37, 40, 4, True, 16), (130, 64, 16, False, 16), (64, 24, 8, True, 16),
+              (11, 40, 2, True, 16), (33, 300, 8, False, 16), (65, 40, 16, True, 64),
+              (64, 64, 16, False, 64), (129, 170, 2, False, 64), (63, 48, 4, True, 64),
+              (200, 1024, 16, True, 64)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,Dm,N,with_h0", [(37, 40, 4, True), (130, 64, 16, False),
-                                             (64, 24, 8, True)])
-def test_scan_kernels_match_plain_on_card(card, dtype, T, Dm, N, with_h0):
+@pytest.mark.parametrize("T,Dm,N,with_h0,chunk", SCAN_CASES)
+def test_scan_kernels_match_plain_on_card(card, dtype, T, Dm, N, with_h0, chunk):
     """Forward (with and without checkpoints) and backward kernels against
     the plain versions on the same inputs, ragged T and channel slices.
     Tolerances: y rounds to its dtype (1e-2 of its largest magnitude covers
     one bf16 ulp); the f32 states and gradients differ only in summation
-    order and exp rounding (1e-4 of each output's largest magnitude)."""
-    u, delta, A, B, C, D, h0 = _scan_case(card, dtype, 2, T, Dm, N, seed=T)
-    chunk = 16
+    order and exp rounding (1e-4 of each output's largest magnitude).  The
+    two forwards give bit-identical y and h_T, and a rerun of the backward
+    bit-identical outputs (no atomics)."""
+    u, delta, A, B, C, D, h0 = _scan_case(card, dtype, 2, T, Dm, N, seed=T, with_h0=with_h0)
     y_w, hT_w, ck_w = ps.scan_ckpt_ref(u, delta, A, B, C, D, h0, chunk)
     y_tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     y, hT = ps.selective_scan_fwd(u, delta, A, B, C, D, h0, chunk)
@@ -356,6 +365,24 @@ def test_scan_kernels_match_plain_on_card(card, dtype, T, Dm, N, with_h0):
         assert _rel(g_, w_) <= 1e-4, name
     again = ps.selective_scan_bwd(u, delta, A, B, C, ck, dy, dhT, chunk)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bit-identical
+
+
+def test_scan_launch_plan_spans_clusters_on_card(card):
+    """At d_inner 1,024 the gradient pass runs 8 clusters of 8 slices per
+    (row, chunk) and writes 8 dB/dC partials; the kernels take that
+    plan and refuse one whose shared memory differs."""
+    plan = ps.scan_launch_plan(2, 200, 1024, 16, 64)
+    assert plan.bwd_grad.cluster == 8 and plan.bwd_grad.grid[0] == 64 and plan.partial_slices == 8
+    u, delta, A, B, C, D, _ = _scan_case(card, torch.bfloat16, 2, 200, 1024, 16, seed=3)
+    ck = ps.selective_scan_fwd_ckpt(u, delta, A, B, C, D)[2]
+    dy, dhT = torch.randn((2, 200, 1024), device=card), torch.randn((2, 16, 1024), device=card)
+    lib = ps._library()
+    bad = torch.empty(1, device=card)
+    err = lib.selective_scan_bwd_launch(
+        *[t.data_ptr() for t in (u, delta, A, B, C, ck, dy, dhT)], *[bad.data_ptr()] * 8,
+        2, 200, 1024, 16, 64, 1, plan.bwd_grad.cluster, plan.bwd_summary.smem_bytes,
+        plan.bwd_grad.smem_bytes + 16, torch.cuda.current_stream().cuda_stream)
+    assert err != 0  # a plan laid out otherwise is refused before any launch
 
 
 @pytest.mark.parametrize("with_h0", [False, True])

@@ -286,12 +286,13 @@ def test_scan_forward_dispatches_to_kernels_on_card(monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["u_f16", "B_dtype", "delta_bf16", "state_3", "A_shape",
-                                  "noncontig", "h0_shape", "chunk_0", "two_devices"])
+                                  "noncontig", "h0_shape", "chunk_0", "chunk_32", "two_devices"])
 def test_scan_kernel_rejects_unsupported_args(case):
-    """What the scan kernels do not take raises before any launch."""
+    """What the scan kernels do not take raises before any launch (the
+    kernels are built for chunks of 16 and 64 only)."""
     u, delta = torch.zeros((2, 9, 32)), torch.zeros((2, 9, 32))
     A, B, C, h0 = torch.zeros((32, 4)), torch.zeros((2, 9, 4)), torch.zeros((2, 9, 4)), None
-    chunk = 8
+    chunk = 16
     if case == "u_f16":
         u = u.half()
     elif case == "B_dtype":
@@ -308,6 +309,8 @@ def test_scan_kernel_rejects_unsupported_args(case):
         h0 = torch.zeros((2, 32, 4))
     elif case == "chunk_0":
         chunk = 0
+    elif case == "chunk_32":
+        chunk = 32
     elif case == "two_devices":
         C = C.to("meta")
     with pytest.raises(ValueError):
