@@ -34,11 +34,21 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              eager step loop over its first 256 steps: equal tokens and logits.
 5. profile — torch.profiler over the int8_kv decode at B=1 as serving runs
              it (condition, capture, replay) at 32 and 96 frames: wall per
-             step, device busy and idle share, device kernels per step and
+             step (unprofiled), device busy and idle share (against the
+             profiled call's own wall), device kernels per step and
              the kernels that take the time, for the whole 480-step call and
              for the 320 steps between the two (the per-call costs drop
              out); the same for a window of the eager step loop, for the
              record.
+5b. default decode — ``load_synthesizer(TTSConfig(), quant="none")``, the
+             CLI's default, whose step loop is captured too: (a') B=1, 256
+             frames and (d') 1,024 frames (wall, decode ms per step, RTF; no
+             int8_matvec or megakernel launch); the captured decode against
+             the eager in-place step loop over 256 steps (equal tokens,
+             bit-identical logits), both timed; torch.profiler over 32
+             steps of the eager loop (device busy and idle share, kernels
+             per step) and phase 5's profile of the captured decode at 8
+             and 24 frames.
 6. megakernel kernel — the one-launch decode kernel against its plain PyTorch
              version on the card at full width (8 layers, memory 1,536), 8
              frames = 40 steps, B in {1, 2, 4} on the three dtype rungs (every
@@ -98,11 +108,32 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 12. train CLI — ``mamba_tts_torch.train.train.main`` at its defaults (full
              width, B=10, synthetic data): 4 steps with checkpoints, then
              --resume to step 6; finite losses, ms per step.
+12b. checkpoint serving — ``load_synthesizer(checkpoint_dir=...)`` with no
+             config on what phase 12 wrote: the CLI's config, checkpoint 6's
+             parameters bit for bit (``style_pipe`` included), not the
+             seeded init, load seconds; one 128-frame request each with
+             quant none, int8 (6 x n_layers int8_matvec executions a step)
+             and megakernel (one launch); the megakernel on the trained
+             weights against its plain version, teacher-forced (phase 6's
+             limits).
+12c. released weights — FACodec and BERT state dicts in the released
+             files' naming and shapes (tests/data/*_manifest.json), drawn
+             from a seed, saved with torch.save and served: one megakernel
+             request through ``load_synthesizer(codec_ckpts=...)`` with
+             ``StyleTextEncoder(checkpoint=...)``; every key read, every
+             fused FACodec weight g * v / ||v|| of the file, finite audio.
 13. flagship step — B=8, 1,024 target frames (Tq=5,120) and 1,024-frame
              voice prompts from the port's BatchPreparer: 3 optimizer steps,
              ms per step, tokens/s, peak memory, 8 calls per step of each
              training kernel, device idle share and top kernels; then the
              counts of phases 11-13 must show every training kernel.
+13b. style branch — ``MambaTTS.nar_frames`` at full width for the four
+             texts (B=4, max_frame_len 1,024; 1,200, 256, 640 and 512
+             frames spread over their phonemes), card against CPU within 2e-2
+             of the largest magnitude; ``make_train_step(...,
+             use_nar_branch=True)`` at B=10 beside the default step: finite
+             losses, every style_pipe gradient exactly zero, ms per step,
+             and device busy ms and kernels per step under torch.profiler.
 14. card vs CPU — 2 layers at full width, one batch, deterministic: losses
              and each component's gradient on the card against the CPU's
              plain path; 10 steps on a fixed batch lower the codec loss.
@@ -142,7 +173,13 @@ TEXTS = [TEXT, "Hello there.", "Numbers like 42 and 1999 are spoken too.",
 STYLES = [STYLE, "fast and loud", "whispering", STYLE]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's row also carries the script's elapsed seconds."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -288,13 +325,11 @@ def phase_slice(torch):
 
     from mamba_tts_torch.config import TTSConfig
     from mamba_tts_torch.infer.synthesize import load_synthesizer
-    from mamba_tts_torch.ops.int8_matvec import int8_matvec
 
     cfg = TTSConfig()
     d = cfg.decoder
     check((d.d_model, d.n_layers, d.n_heads, d.d_ff, d.vocab_size_audio) == (512, 8, 8, 2048, 1026),
           "default decoder width")
-    hop = cfg.codec.hop_length
     per_step = 6 * d.n_layers
     voice = _voice()
     t0 = time.perf_counter()
@@ -305,63 +340,32 @@ def phase_slice(torch):
           "params": {"decoder": sum(p.numel() for p in synth_q.decoder.parameters()),
                      "bert": sum(p.numel() for p in synth_q.style_encoder.module.parameters()),
                      "facodec": sum(p.numel() for p in synth_q.tokenizer.module.parameters())}})
-    results, launches, decode_s = {}, 0, []
+    results, launches = {}, 0
 
-    def time_decode(synth):
-        """Time each ``decode_tokens`` call (conditioning + the step loop)
-        so that a request's wall splits into decode and everything else."""
-        inner = synth.decode_tokens
-
-        def timed(*args, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = inner(*args, **kw)
-            torch.cuda.synchronize()
-            decode_s.append(time.perf_counter() - t)
-            return out
-
-        synth.decode_tokens = timed
-
-    time_decode(synth_kv)
-    time_decode(synth_q)
-
-    def serve(tag, fn, frames, batch):
+    def serve(tag, synth, fn, frames, batch):
         nonlocal launches
-        int8_matvec.launches = 0
-        decode_s.clear()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        wavs, info = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        n = int8_matvec.launches
+        read = _zero_counts()
+        wavs, row = _timed_request(torch, synth, fn, frames, batch,
+                                   {"phase": "slice", "request": tag})
+        n = read()["int8_matvec"]
         steps = d.num_quantizers * frames
         check(n == per_step * steps, f"{tag}: {n} int8_matvec launches, expected "
               f"{per_step} x {steps} = {per_step * steps}")
-        wavs = np.asarray(wavs).reshape(batch, -1)
-        check(wavs.shape[1] == frames * hop, f"{tag}: {wavs.shape[1]} samples, expected {frames * hop}")
-        check(bool(np.isfinite(wavs).all()), f"{tag}: non-finite waveform")
-        tokens = batch * steps
-        audio = batch * frames / 80.0
-        decode = sum(decode_s)
-        row = {"phase": "slice", "request": tag, "batch": batch, "frames": frames,
-               "tokens": tokens, "wall_seconds": wall, "tokens_per_s": tokens / wall,
-               "rtf": wall / audio, "decode_seconds": decode,
-               "decode_ms_per_step": decode / steps * 1e3,
-               "outside_decode_seconds": wall - decode, "int8_matvec_launches": n}
+        row["int8_matvec_launches"] = n
         emit(row)
         results[tag] = row
         launches += n
         return wavs
 
-    serve("a_int8_kv_3.2s", lambda: synth_kv.synthesize(TEXT, STYLE, voice, frames=256), 256, 1)
-    wb = serve("b_int8_batch4", lambda: synth_q.synthesize_batch(
+    serve("a_int8_kv_3.2s", synth_kv, lambda: synth_kv.synthesize(TEXT, STYLE, voice, frames=256),
+          256, 1)
+    wb = serve("b_int8_batch4", synth_q, lambda: synth_q.synthesize_batch(
         TEXTS, STYLES, [voice] * 4, frames=256), 256, 4)
     for i in range(4):
         for j in range(i + 1, 4):
             check(not np.allclose(wb[i], wb[j]), f"batch rows {i} and {j} are identical")
     synth_q.register_voice("speaker_0", voice)
-    serve("c_int8_registered_voice",
+    serve("c_int8_registered_voice", synth_q,
           lambda: synth_q.synthesize(TEXT, STYLE, "speaker_0", frames=128), 128, 1)
     return synth_q, results, launches
 
@@ -395,9 +399,11 @@ def phase_parity(torch, synth, steps=64, frames=1024):
         KV, mm, films = dec.project_memories(th_, mask_, rh_, rm_, z_)
         states = dec.init_states(1)
         tok = torch.full((1, 1), cfg.bos_id, dtype=torch.long, device=th_.device)
+        index = torch.arange(steps, device=th_.device)
         logits, toks = [], []
         for t in range(steps):
-            lg, states = quant_step_with_kv(qp, cfg, tok, KV, mm, films, states, t, frames)
+            lg, states = quant_step_with_kv(qp, cfg, tok, KV, mm, films, states,
+                                            index[t:t + 1], frames)
             lg = lg[:, 0].float()
             logits.append(lg)
             masked = lg.clone()
@@ -445,7 +451,9 @@ def phase_captured_vs_eager(torch, synth, steps=256, frames=256):
         KV = qd.quantize_kv(KV)
         carry = qd.init_carry(cfg, 1, cfg.num_quantizers * frames, dec.dtype, th.device, True)
         for _ in range(steps):
-            qd.decode_step_(synth._qparams, cfg, KV, mm, films, carry, frames)
+            qd.decode_step_(lambda tok, st, i: qd.quant_step_with_kv(synth._qparams, cfg, tok, KV,
+                                                                     mm, films, st, i, frames),
+                            carry, cfg.num_special_tokens)
     torch.cuda.synchronize()
     same_tokens = torch.equal(got.tokens[:, :steps], carry.tokens[:, :steps])
     diff = float((got.logits[:, :steps] - carry.logits[:, :steps]).abs().max())
@@ -456,13 +464,60 @@ def phase_captured_vs_eager(torch, synth, steps=256, frames=256):
     return row
 
 
+def _device(prof):
+    kernels = _device_kernels(prof)
+    return kernels, sum(_dev_us(e) for e in kernels) / 1e3, sum(e.count for e in kernels)
+
+
+def _top(kernels, n):
+    return [{"name": e.key[:80], "device_ms_per_step": _dev_us(e) / 1e3 / n,
+             "calls_per_step": e.count / n}
+            for e in sorted(kernels, key=_dev_us, reverse=True)[:8]]
+
+
+def _profile_served(torch, served, steps_per_frame, frames=(32, 96)):
+    """``served(f)`` (one decode call as serving runs it: condition, capture
+    once, replay) at two lengths, so that the per-call costs (conditioning,
+    capture) drop out of the difference: wall per step (both lengths timed
+    before either is profiled), and device busy and idle share and device
+    kernels per step under torch.profiler (the idle share against the
+    profiled call's own wall), of the whole longer call and of the steps
+    between the two."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall, pwall, busy, count, kernels = {}, {}, {}, {}, None
+    for f in frames:
+        served(f)
+    for f in frames:
+        t0 = time.perf_counter()
+        served(f)
+        wall[f] = (time.perf_counter() - t0) * 1e3
+    for f in frames:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            served(f)
+            pwall[f] = (time.perf_counter() - t0) * 1e3
+        kernels, busy[f], count[f] = _device(prof)
+    lo, hi = frames
+    n_hi, n = steps_per_frame * hi, steps_per_frame * (hi - lo)
+    steady_busy, steady_pwall = (busy[hi] - busy[lo]) / n, (pwall[hi] - pwall[lo]) / n
+    return {"mode": "captured", "steps": n_hi, "wall_ms_per_step": wall[hi] / n_hi,
+            "profiled_wall_ms_per_step": pwall[hi] / n_hi,
+            "device_busy_ms_per_step": busy[hi] / n_hi,
+            "device_idle_share": 1 - busy[hi] / pwall[hi],
+            "kernel_launches_per_step": count[hi] / n_hi,
+            "steady_steps": n, "steady_wall_ms_per_step": (wall[hi] - wall[lo]) / n,
+            "steady_profiled_wall_ms_per_step": steady_pwall,
+            "steady_device_busy_ms_per_step": steady_busy,
+            "steady_device_idle_share": 1 - steady_busy / steady_pwall,
+            "steady_kernel_launches_per_step": (count[hi] - count[lo]) / n,
+            "top_kernels": _top(kernels, n_hi)}
+
+
 def phase_profile(torch, synth, steps=32, frames=(32, 96)):
-    """The int8_kv decode at B=1 as serving runs it (``greedy_decode_int8``:
-    condition, capture once, replay) at two lengths, so that the per-call
-    costs (conditioning, capture) drop out of the difference: wall per
-    step, device busy and idle share and device kernels per step of the
-    whole longer call and of the steps between the two; then a window of
-    the eager step loop of the earlier slices, for the record."""
+    """The int8_kv decode at B=1 as serving runs it (``greedy_decode_int8``)
+    through ``_profile_served``; then a window of the eager step loop of the
+    earlier slices, for the record."""
     from torch.profiler import ProfilerActivity, profile
 
     from mamba_tts_torch.infer.quant_decode import greedy_decode_int8, quant_step_with_kv
@@ -470,52 +525,25 @@ def phase_profile(torch, synth, steps=32, frames=(32, 96)):
     th, mask, rh, rm, z = _condition(torch, synth)
     dec, cfg = synth.decoder, synth.decoder.cfg
 
-    def device(prof):
-        kernels = _device_kernels(prof)
-        return kernels, sum(_dev_us(e) for e in kernels) / 1e3, sum(e.count for e in kernels)
-
-    def top(kernels, n):
-        return [{"name": e.key[:80], "device_ms_per_step": _dev_us(e) / 1e3 / n,
-                 "calls_per_step": e.count / n}
-                for e in sorted(kernels, key=_dev_us, reverse=True)[:8]]
-
     with torch.no_grad():
         def served(f):
             greedy_decode_int8(dec, synth._qparams, th, z, f, text_mask=mask, ref_hidden=rh,
                                ref_mask=rm, int8_kv=True)
             torch.cuda.synchronize()
 
-        wall, busy, count, kernels = {}, {}, {}, None
-        for f in frames:
-            served(f)
-            t0 = time.perf_counter()
-            served(f)
-            wall[f] = (time.perf_counter() - t0) * 1e3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                served(f)
-            kernels, busy[f], count[f] = device(prof)
-        lo, hi = frames
-        n_hi, n = cfg.num_quantizers * hi, cfg.num_quantizers * (hi - lo)
-        steady_wall, steady_busy = (wall[hi] - wall[lo]) / n, (busy[hi] - busy[lo]) / n
-        captured = {"mode": "captured", "steps": n_hi, "wall_ms_per_step": wall[hi] / n_hi,
-                    "device_busy_ms_per_step": busy[hi] / n_hi,
-                    "device_idle_share": 1 - busy[hi] / wall[hi],
-                    "kernel_launches_per_step": count[hi] / n_hi,
-                    "steady_steps": n, "steady_wall_ms_per_step": steady_wall,
-                    "steady_device_busy_ms_per_step": steady_busy,
-                    "steady_device_idle_share": 1 - steady_busy / steady_wall,
-                    "steady_kernel_launches_per_step": (count[hi] - count[lo]) / n,
-                    "top_kernels": top(kernels, n_hi)}
+        captured = _profile_served(torch, served, cfg.num_quantizers, frames)
         emit({"phase": "profile", **captured})
+        hi = frames[1]
 
         KV, mm, films = dec.project_memories(th, mask, rh, rm, z)
         states = dec.init_states(1)
         tok = torch.full((1, 1), cfg.bos_id, dtype=torch.long, device="cuda")
+        index = torch.arange(steps, device="cuda")
 
         def window(n, states):
             for t in range(n):
                 lg, states = quant_step_with_kv(synth._qparams, cfg, tok, KV, mm, films,
-                                                states, t, hi)
+                                                states, index[t:t + 1], hi)
             return states
 
         states = window(4, states)
@@ -527,14 +555,152 @@ def phase_profile(torch, synth, steps=32, frames=(32, 96)):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             window(steps, states)
             torch.cuda.synchronize()
-    kernels, busy_ms, n_kernels = device(prof)
+    kernels, busy_ms, n_kernels = _device(prof)
     eager = {"mode": "eager_step_loop", "steps": steps, "wall_ms_per_step": wall_ms / steps,
              "device_busy_ms_per_step": busy_ms / steps,
              "device_idle_share": 1 - busy_ms / wall_ms,
-             "kernel_launches_per_step": n_kernels / steps, "top_kernels": top(kernels, steps)}
+             "kernel_launches_per_step": n_kernels / steps, "top_kernels": _top(kernels, steps)}
     emit({"phase": "profile", **eager})
     check(captured["kernel_launches_per_step"] > 0, "the profiler saw no kernel of the replays")
     return captured, eager
+
+
+def _timed_request(torch, synth, fn, frames, batch, row):
+    """Serve one request ``fn() -> (wavs, info)`` with ``decode_tokens``
+    timed, so that its wall splits into the decode and everything else;
+    check finite waveforms of ``frames * hop`` samples a row.  Returns
+    (wavs (batch, samples), ``row`` with the request's numbers added)."""
+    import numpy as np
+
+    decode_s = []
+    inner = synth.decode_tokens
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t)
+        return out
+
+    synth.decode_tokens = timed
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        wavs, _ = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        del synth.decode_tokens
+    tag, hop = row["request"], synth.cfg.codec.hop_length
+    wavs = np.asarray(wavs).reshape(batch, -1)
+    check(wavs.shape[1] == frames * hop, f"{tag}: {wavs.shape[1]} samples, expected {frames * hop}")
+    check(bool(np.isfinite(wavs).all()), f"{tag}: non-finite waveform")
+    steps = synth.cfg.decoder.num_quantizers * frames
+    decode = sum(decode_s)
+    return wavs, {**row, "batch": batch, "frames": frames, "tokens": batch * steps,
+                  "wall_seconds": wall, "tokens_per_s": batch * steps / wall,
+                  "rtf": wall / (batch * frames / 80.0), "decode_seconds": decode,
+                  "decode_ms_per_step": decode / steps * 1e3, "outside_decode_seconds": wall - decode}
+
+
+def _zero_counts():
+    from mamba_tts_torch.ops import decode_megakernel as mk
+    from mamba_tts_torch.ops.int8_matvec import int8_matvec
+
+    mk._megakernel_call.launches = 0
+    int8_matvec.launches = 0
+    return lambda: {"int8_matvec": int8_matvec.launches,
+                    "decode_megakernel": mk._megakernel_call.launches}
+
+
+def phase_default_decode(torch, voice, eager_steps=256, eager_profiled=32,
+                         profile_frames=(8, 24)):
+    """``quant="none"``, the CLI's default, at full width: (a') B=1, 256
+    frames and (d') the flagship, 1,024 frames, through the captured decode
+    (no custom kernel: the step is plain products); the captured decode
+    against the eager in-place step loop over its first 256 steps (equal
+    tokens, bit-identical logits), both timed; torch.profiler over the eager
+    loop's next 32 steps (device busy, idle share against the unprofiled
+    wall of the 32 steps before them, as phase 5 does for the int8 loop) and
+    over the served decode at 8 and 24 frames (fewer than phase 5's, to keep
+    the profiler's cost down).  Returns the synthesizer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.infer.synthesize import load_synthesizer
+    from mamba_tts_torch.models import decoder as dm
+
+    cfg = TTSConfig()
+    t0 = time.perf_counter()
+    synth = load_synthesizer(cfg, seed=0, quant="none", device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "default_decode", "setup_seconds": time.perf_counter() - t0})
+    for tag, frames in (("a'_none_3.2s", 256), ("d'_none_12.8s", 1024)):
+        read = _zero_counts()
+        emit(_timed_request(torch, synth, lambda: synth.synthesize(TEXT, STYLE, voice, frames=frames),
+                            frames, 1, {"phase": "default_decode", "request": tag})[1])
+        check(read() == {"int8_matvec": 0, "decode_megakernel": 0},
+              f"{tag}: a kernel of another decode ran: {read()}")
+
+    th, mask, rh, rm, z = _condition(torch, synth)
+    dec, dc = synth.decoder, synth.decoder.cfg
+    frames = 256
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = dm.greedy_decode(dec, th, z, frames, text_mask=mask, ref_hidden=rh, ref_mask=rm,
+                               collect_logits=True)
+        torch.cuda.synchronize()
+        captured_ms = (time.perf_counter() - t) * 1e3 / (dc.num_quantizers * frames)
+        KV, mm, films = dec.project_memories(th, mask, rh, rm, z)
+        carry = dm.init_carry(dc, 1, dc.num_quantizers * frames, dec.dtype, th.device, True)
+
+        def eager(n):
+            for _ in range(n):
+                dm.decode_step_(lambda tok, st, i: dec.step_with_kv(tok, KV, mm, films, st, i,
+                                                                    frames),
+                                carry, dc.num_special_tokens)
+            torch.cuda.synchronize()
+
+        eager(1)
+        t = time.perf_counter()
+        eager(eager_steps - 1)
+        eager_ms = (time.perf_counter() - t) * 1e3 / (eager_steps - 1)
+        same = torch.equal(got.tokens[:, :eager_steps], carry.tokens[:, :eager_steps])
+        diff = float((got.logits[:, :eager_steps] - carry.logits[:, :eager_steps]).abs().max())
+        t = time.perf_counter()
+        eager(eager_profiled)
+        window_ms = (time.perf_counter() - t) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            eager(eager_profiled)
+            profiled_ms = (time.perf_counter() - t) * 1e3
+    kernels, busy_ms, n_kernels = _device(prof)
+    row = {"phase": "default_decode", "check": "captured_vs_eager", "steps": eager_steps,
+           "tokens_equal": same, "max_abs_logit_diff": diff,
+           "captured_ms_per_step": captured_ms, "eager_ms_per_step": eager_ms}
+    emit(row)
+    check(same and diff == 0.0, f"captured default decode differs from the eager loop: {row}")
+    n = eager_profiled
+    emit({"phase": "default_decode", "profile": True, "mode": "eager_step_loop", "steps": n,
+          "wall_ms_per_step": window_ms / n, "profiled_wall_ms_per_step": profiled_ms / n,
+          "device_busy_ms_per_step": busy_ms / n, "device_idle_share": 1 - busy_ms / window_ms,
+          "profiled_device_idle_share": 1 - busy_ms / profiled_ms,
+          "kernel_launches_per_step": n_kernels / n, "top_kernels": _top(kernels, n)})
+    check(n_kernels > 0, "the profiler saw no kernel of the eager default decode")
+
+    t = time.perf_counter()
+    with torch.no_grad():
+        def served(f):
+            dm.greedy_decode(dec, th, z, f, text_mask=mask, ref_hidden=rh, ref_mask=rm)
+            torch.cuda.synchronize()
+
+        prof = _profile_served(torch, served, dc.num_quantizers, profile_frames)
+    emit({"phase": "default_decode", "profile": True, **prof,
+          "profile_seconds": time.perf_counter() - t})
+    check(prof["kernel_launches_per_step"] > 0, "the profiler saw no kernel of the replays")
+    return synth
 
 
 # ---------------------------------------------------------------- megakernel
@@ -701,62 +867,36 @@ def phase_megakernel_slice(torch, voice):
     from mamba_tts_torch.config import TTSConfig
     from mamba_tts_torch.infer import synthesize as syn
     from mamba_tts_torch.ops import decode_megakernel as mk
-    from mamba_tts_torch.ops.int8_matvec import int8_matvec
 
     cfg = TTSConfig()
     d = cfg.decoder
-    hop = cfg.codec.hop_length
     t0 = time.perf_counter()
     synth = syn.load_synthesizer(cfg, seed=0, quant="megakernel", device="cuda")
     torch.cuda.synchronize()
     emit({"phase": "megakernel_slice", "setup_seconds": time.perf_counter() - t0})
-    decode_s = []
-    inner = synth.decode_tokens
-
-    def timed(*args, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = inner(*args, **kw)
-        torch.cuda.synchronize()
-        decode_s.append(time.perf_counter() - t)
-        return out
-
-    synth.decode_tokens = timed
     memory_len = 256 * d.num_quantizers + cfg.data.max_text_len  # 3 s prompt bucket + padded text
     max_batch = mk.megakernel_max_batch(d, memory_len)
     results, launches = {}, 0
 
     def serve(tag, fn, frames, batch, sampled=False):
         nonlocal launches
-        mk._megakernel_call.launches = 0
-        int8_matvec.launches = 0
-        decode_s.clear()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        wavs, info = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        read = _zero_counts()
+        wavs, row = _timed_request(torch, synth, fn, frames, batch,
+                                   {"phase": "megakernel_slice", "request": tag})
+        n = read()
         chunks = -(-batch // max_batch)
-        n = mk._megakernel_call.launches
-        check(n == chunks, f"{tag}: {n} megakernel launches, expected {chunks} chunks")
-        check(int8_matvec.launches == 0, f"{tag}: {int8_matvec.launches} int8_matvec launches: "
+        check(n["decode_megakernel"] == chunks, f"{tag}: {n['decode_megakernel']} megakernel "
+              f"launches, expected {chunks} chunks")
+        check(n["int8_matvec"] == 0, f"{tag}: {n['int8_matvec']} int8_matvec launches: "
               "a request of this slice took the step decode")
-        wavs = np.asarray(wavs).reshape(batch, -1)
-        check(wavs.shape[1] == frames * hop, f"{tag}: {wavs.shape[1]} samples, expected {frames * hop}")
-        check(bool(np.isfinite(wavs).all()), f"{tag}: non-finite waveform")
-        steps = d.num_quantizers * frames
-        tokens = batch * steps
-        decode = sum(decode_s)
         rung = syn._megakernel_dtypes(d, min(batch, max_batch), memory_len, sampled=sampled)
-        row = {"phase": "megakernel_slice", "request": tag, "batch": batch, "frames": frames,
-               "tokens": tokens, "wall_seconds": wall, "tokens_per_s": tokens / wall,
-               "rtf": wall / (batch * frames / 80.0), "decode_seconds": decode,
-               "decode_us_per_step": decode / (chunks * steps) * 1e6,
-               "outside_decode_seconds": wall - decode, "megakernel_launches": n,
-               "int8_matvec_launches": 0, "rung": list(rung), "max_batch": max_batch}
+        row.update({"decode_us_per_step": row["decode_seconds"] / (chunks * d.num_quantizers
+                                                                   * frames) * 1e6,
+                    "megakernel_launches": n["decode_megakernel"], "int8_matvec_launches": 0,
+                    "rung": list(rung), "max_batch": max_batch})
         emit(row)
         results[tag] = row
-        launches += n
+        launches += n["decode_megakernel"]
         return wavs
 
     def rows_differ(tag, w):
@@ -1250,9 +1390,10 @@ def phase_forward_vs_decode(torch, steps=128, frames=1024):
         KV, mm, films = dec.project_memories(th, mask, rh, rm, z)
         states = dec.init_states(1)
         tok = torch.full((1, 1), dc.bos_id, dtype=torch.long, device="cuda")
+        index = torch.arange(steps, device="cuda")
         step_logits, toks = [], []
         for t in range(steps):
-            lg, states = dec.step_with_kv(tok, KV, mm, films, states, t, frames)
+            lg, states = dec.step_with_kv(tok, KV, mm, films, states, index[t:t + 1], frames)
             step_logits.append(lg[:, 0].float())
             masked = lg[:, 0].float().clone()
             masked[:, :dc.num_special_tokens] = -1e9
@@ -1306,6 +1447,290 @@ def phase_train_cli(torch, tmp):
            "loss_total": [h["loss_total"] for run in (first, second) for h in run["history"]]}
     emit(row)
     return row
+
+
+def phase_checkpoint_serving(torch, tmp, voice, frames=128):
+    """Serve what phase 12's train CLI wrote (``config.json`` and checkpoints
+    4 and 6 at full width) through ``load_synthesizer(checkpoint_dir=...)``
+    with no config: the CLI's config, the parameters of checkpoint 6 bit for
+    bit (``style_pipe`` included) and not the seeded init; one request each
+    with quant none, int8 and megakernel (their kernels' counts set to 0
+    just before and read just after); the megakernel on the trained weights
+    against its plain version, teacher-forced, at phase 6's limits.
+    Returns the two kernels' launch counts."""
+    from mamba_tts_torch import config as config_lib
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.infer.synthesize import Synthesizer, load_synthesizer
+    from mamba_tts_torch.models.layers import seed_init
+    from mamba_tts_torch.models.tts import MambaTTS
+    from mamba_tts_torch.ops import decode_megakernel as mk
+    from mamba_tts_torch.train import state as state_lib
+
+    ck = tmp / "ck"
+    t0 = time.perf_counter()
+    synth = load_synthesizer(checkpoint_dir=str(ck), quant="megakernel", device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg = synth.cfg
+    check(cfg == config_lib.override(TTSConfig(), "train.max_steps", 6)
+          and cfg == config_lib.from_json((ck / "config.json").read_text()),
+          "checkpoint serving: the config is not the train CLI's")
+    params, restored = state_lib.restore_params(str(ck))
+    own = dict(synth.model.named_parameters())
+    check(restored and set(own) == set(params), "checkpoint serving: parameter names differ")
+    check(all(torch.equal(own[n].cpu(), params[n]) for n in params),
+          "checkpoint serving: a parameter differs from checkpoint 6")
+    init = dict(seed_init(MambaTTS(cfg), 0).named_parameters())
+    moved = sum(not torch.equal(params[n], init[n]) for n in params)
+    check(moved > 0 and not torch.equal(params["decoder.head.weight"], init["decoder.head.weight"]),
+          "checkpoint serving: the parameters are the seeded init")
+    emit({"phase": "checkpoint_serving", "load_seconds": load_s, "step": 6,
+          "parameters": len(params), "style_pipe_parameters":
+          sum(n.startswith("style_pipe.") for n in params), "moved_from_init": moved})
+
+    per_step = 6 * cfg.decoder.n_layers
+    launches = {"int8_matvec": 0, "decode_megakernel": 0}
+    for quant in ("none", "int8", "megakernel"):
+        served = synth if quant == "megakernel" else Synthesizer(
+            cfg, synth.model, tokenizer=synth.tokenizer, frontend=synth.frontend,
+            style_encoder=synth.style_encoder, quant=quant, device="cuda")
+        read = _zero_counts()
+        emit(_timed_request(torch, served, lambda: served.synthesize(TEXT, STYLE, voice,
+                                                                     frames=frames),
+                            frames, 1, {"phase": "checkpoint_serving",
+                                        "request": f"trained_{quant}"})[1])
+        n = read()
+        steps = cfg.decoder.num_quantizers * frames
+        want = {"none": {"int8_matvec": 0, "decode_megakernel": 0},
+                "int8": {"int8_matvec": per_step * steps, "decode_megakernel": 0},
+                "megakernel": {"int8_matvec": 0, "decode_megakernel": 1}}[quant]
+        check(n == want, f"checkpoint serving, quant={quant}: launches {n}, expected {want}")
+        launches = {k: launches[k] + v for k, v in n.items()}
+
+    dec, dc = synth.decoder, synth.decoder.cfg
+    th, mask, rh, rm, z = _condition(torch, synth)
+    mframes = 8
+    with torch.no_grad():
+        KV, mm, films = dec.project_memories(th, mask, rh, rm, z)
+        wd, kvd = mk.megakernel_fit(dc, 1, KV[0][0].shape[2])
+        plan = mk._build_plan(dc, synth._qparams, KV, mm, films, mframes, weight_dtype=wd,
+                              kv_dtype=kvd, weight_plan=synth._weight_plans[wd])
+        forced = _forced(torch, dc, dc.num_quantizers * mframes, 1, seed=6)
+        got = mk._megakernel_call(dc, plan, mframes, forced)
+        want = mk.decode_megakernel_ref(dc, plan, mframes, forced)
+    torch.cuda.synchronize()
+    _hold_to_plain(torch, dc, got, want, "trained_weights_teacher_forced", B=1, weights=wd, kv=kvd)
+    return launches
+
+
+def phase_released_weights(torch, tmp, voice, frames=128, seed=0):
+    """FACodec and BERT state dicts in the released files' naming and shapes
+    (``tests/data/*_manifest.json``), drawn from a seed with weight-norm
+    ``g = ||v||`` and Snake alpha near 1 so that the fused weights keep the
+    init's scale, saved with ``torch.save`` and served: one megakernel
+    request through ``load_synthesizer(codec_ckpts=...)`` with a
+    ``StyleTextEncoder(checkpoint=...)``.  Checks that every file key was
+    read, that every fused FACodec weight equals ``g * v / ||v||`` computed
+    from the file, and a finite waveform.  Returns the megakernel launches."""
+    import numpy as np
+
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.infer.synthesize import load_synthesizer
+    from mamba_tts_torch.models import style_text_encoder as ste
+
+    rng = np.random.default_rng(seed)
+
+    def draw(manifest):
+        sd = {}
+        for k, shape in manifest.items():
+            module, leaf = k.rsplit(".", 2)[-2:]
+            if leaf.endswith("bias") or leaf == "beta":
+                sd[k] = np.zeros(shape, np.float32)
+            elif leaf == "alpha":
+                sd[k] = (1.0 + 0.05 * rng.standard_normal(shape)).astype(np.float32)
+            elif "ln" in module or module == "LayerNorm":
+                sd[k] = np.ones(shape, np.float32)
+            elif leaf != "weight_g":
+                fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+                sd[k] = (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+        for k in manifest:  # g = ||v|| over v's axes beyond the first
+            if k.endswith(".weight_g"):
+                v = sd[k[:-1] + "v"]
+                sd[k] = np.sqrt((v ** 2).sum(axis=(1, 2), keepdims=True)).astype(np.float32)
+        return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+    man = {n: json.loads((pathlib.Path("tests/data") / f"{n}_manifest.json").read_text())
+           for n in ("facodec_consumed", "bert_base_uncased")}
+    t0 = time.perf_counter()
+    files = {}
+    for name, sd in (("encoder", draw(man["facodec_consumed"]["encoder"])),
+                     ("decoder", draw(man["facodec_consumed"]["decoder"])),
+                     ("bert", draw(man["bert_base_uncased"]["raw_bin"]))):
+        files[name] = tmp / f"released_{name}.bin"
+        torch.save(sd, files[name])
+    cfg = TTSConfig()
+    synth = load_synthesizer(cfg, codec_ckpts=(str(files["encoder"]), str(files["decoder"])),
+                             quant="megakernel", device="cuda")
+    bert_sd = torch.load(files["bert"], weights_only=True)
+    synth.style_encoder = ste.StyleTextEncoder(cfg.style_encoder, checkpoint=bert_sd,
+                                               device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    # every key read: one port parameter per FACodec leaf the files give
+    # (the bridge leaves none unset), one BERT parameter per non-head key
+    # (weight_g and weight_v fuse into one; in_proj_weight and in_proj_bias
+    # split into q, k and v)
+    codec_params = list(synth.tokenizer.module.parameters())
+    n_codec_keys = sum({"weight_g": 0, "in_proj_weight": 3, "in_proj_bias": 3}.get(
+        k.rsplit(".", 1)[-1], 1) for part in ("encoder", "decoder")
+        for k in man["facodec_consumed"][part])
+    bert_keys = [k for k in bert_sd if not k.startswith(("cls.", "bert.pooler."))]
+    check(len(codec_params) == n_codec_keys, f"released FACodec: {len(codec_params)} "
+          f"parameters for {n_codec_keys} file tensors")
+    check(len(list(synth.style_encoder.module.parameters())) == len(bert_keys),
+          "released BERT: a key was not loaded")
+    # every fused weight is g * v / ||v|| from the file, in the port's layout
+    # (conv and transposed conv as stored, 1x1 convs squeezed to Dense)
+    fused = []
+    for part in ("encoder", "decoder"):
+        sd = torch.load(files[part], weights_only=True)
+        for k in sd:
+            if k.endswith(".weight_g"):
+                v = sd[k[:-1] + "v"].double()
+                w = (sd[k].double() * v / v.norm(dim=(1, 2), keepdim=True)).float()
+                fused.append(w[:, :, 0] if w.shape[2] == 1 and "quantizer" in k else w)
+    by_shape = {}
+    for p in codec_params:
+        by_shape.setdefault(tuple(p.shape), []).append(p.detach().cpu())
+    worst = 0.0
+    for w in fused:
+        errs = [float((p - w).abs().max() / w.abs().max()) for p in by_shape.get(tuple(w.shape), [])]
+        check(bool(errs) and min(errs) <= 1e-5, f"released FACodec: no parameter equals a fused "
+              f"weight of shape {tuple(w.shape)}")
+        worst = max(worst, min(errs))
+
+    read = _zero_counts()
+    emit(_timed_request(torch, synth, lambda: synth.synthesize(TEXT, STYLE, voice, frames=frames),
+                        frames, 1, {"phase": "released_weights", "request": "released_megakernel"})[1])
+    n = read()
+    check(n == {"int8_matvec": 0, "decode_megakernel": 1}, f"released weights: launches {n}")
+    emit({"phase": "released_weights", "load_seconds": load_s, "facodec_parameters": len(codec_params),
+          "bert_parameters": len(bert_keys), "fused_weights": len(fused),
+          "fused_max_rel_err": worst})
+    return n["decode_megakernel"]
+
+
+def phase_style_branch(torch, synth, tmp, steps=5, profiled_steps=2):
+    """The NAR style branch at full width: ``nar_frames`` for the script's
+    four texts (B=4, max_frame_len 1,024) on the card against the CPU (2e-2
+    of the largest magnitude, the bf16 tolerance of the CPU tests), on
+    durations that spread 1,200, 256, 640 and 512 frames over each text's
+    phonemes (``heuristic_durations``; the random model predicts under a
+    frame a phoneme, which would leave every frame empty); then
+    ``make_train_step(..., use_nar_branch=True)`` at the CLI's default batch
+    (B=10, synthetic data) beside the default step, timed in turns (default,
+    branch, branch, default), then each under torch.profiler in the same
+    turns (device busy ms and device kernels a step: the branch adds device
+    work only, which the host-bound step's wall does not resolve): finite
+    losses, every ``style_pipe`` gradient exactly zero and its weights
+    unchanged, ms a step of each."""
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.data.dataset import VccmTTSDataset, make_synthetic_dataset
+    from mamba_tts_torch.models.tts import heuristic_durations
+    from mamba_tts_torch.train import state as state_lib
+    from mamba_tts_torch.train import train as tr
+    from mamba_tts_torch.train.pipeline import BatchPreparer
+
+    model = synth.model
+    ids, _, mask = synth.frontend.encode_batch(TEXTS, pad_to=synth.cfg.data.max_text_len)
+    ids, mask = (torch.as_tensor(a, device="cuda") for a in (ids, mask))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        th = model.encode_text(ids.long(), mask.bool())
+        z = model.sample_style(synth.style_encoder.embed(STYLES), g)
+        dur = heuristic_durations(mask.bool(), torch.tensor([1200, 256, 640, 512], device="cuda"))
+        got = model.nar_frames(th, z, dur.float(), mask.bool(), 1024)
+        pipe = copy.deepcopy(model.style_pipe).cpu()
+        want = pipe(th.cpu(), z.cpu(), dur.float().cpu(), mask.bool().cpu(), 1024)
+    check(torch.equal(got[1].cpu(), want[1]), "nar_frames: frame counts differ, card vs CPU")
+    rel = max(float((a.cpu().float() - b.float()).abs().max() / b.float().abs().max())
+              for a, b in zip((got[0], got[2], got[3]), (want[0], want[2], want[3])))
+    row = {"phase": "style_branch", "check": "nar_frames_card_vs_cpu", "B": 4,
+           "frames": [int(n) for n in got[1].tolist()], "max_frame_len": 1024,
+           "shape": list(got[0].shape), "rel_max_err": rel, "limit": 2e-2}
+    emit(row)
+    check(rel <= 2e-2, f"nar_frames card vs CPU: relative error {rel}")
+
+    cfg = TTSConfig()
+    B = cfg.train.batch_size
+    csv_path, tar_path = make_synthetic_dataset(str(tmp / "style"), n_items=2 * B)
+    inputs, target_wav = next(VccmTTSDataset(csv_path, tar_path, seed=0).batches(B, seed=0))
+    batch = tr.batch_to_device(BatchPreparer(cfg, device="cuda")(inputs, target_wav),
+                               torch.device("cuda"))
+    runs = {}
+    for branch in (False, True):
+        model = _full_model(torch, cfg)
+        params = dict(model.named_parameters())
+        tx = state_lib.make_optimizer(cfg.train.lr, cfg.train.grad_clip_norm)
+        seen, apply = {}, tx.apply
+
+        def spy(params, grads, opt_state, seen=seen, apply=apply):
+            seen.update({n: bool(torch.any(gr)) for n, gr in grads.items()
+                         if n.startswith("style_pipe.")})
+            return apply(params, grads, opt_state)
+
+        tx.apply = spy
+        runs[branch] = {"step": tr.make_train_step(model, tx, use_nar_branch=branch),
+                        "st": state_lib.create_train_state(params, tx), "seen": seen,
+                        "params": params, "ms": [], "losses": [],
+                        "before": {n: p.detach().clone() for n, p in params.items()
+                                   if n.startswith("style_pipe.")}}
+        runs[branch]["st"], _ = runs[branch]["step"](runs[branch]["st"], batch)  # warm-up
+    for branch in (False, True, True, False):  # in turns: default, branch, branch, default
+        r = runs[branch]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            r["st"], lo = r["step"](r["st"], batch)
+            r["losses"].append({k: float(v) for k, v in lo.items()})
+        torch.cuda.synchronize()
+        r["ms"].append((time.perf_counter() - t0) / steps * 1e3)
+    for r in runs.values():
+        r["busy_ms"], r["kernels"] = [], []
+    for branch in (False, True, True, False):
+        r = runs[branch]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(profiled_steps):
+                r["st"], lo = r["step"](r["st"], batch)
+                r["losses"].append({k: float(v) for k, v in lo.items()})
+            torch.cuda.synchronize()
+        _, busy, count = _device(prof)
+        r["busy_ms"].append(busy / profiled_steps)
+        r["kernels"].append(count / profiled_steps)
+    for branch, r in runs.items():
+        nonzero = sum(r["seen"].values())
+        changed = sum(not torch.equal(r["before"][n], r["params"][n]) for n in r["before"])
+        check(all(math.isfinite(v) for lo in r["losses"] for v in lo.values()),
+              f"use_nar_branch={branch}: a non-finite loss")
+        check(len(r["seen"]) == len(r["before"]) > 0 and nonzero == 0 and changed == 0,
+              f"use_nar_branch={branch}: {nonzero} style_pipe gradients not zero, "
+              f"{changed} style_pipe weights changed")
+    emit({"phase": "style_branch", "check": "train_step", "B": B, "steps": steps,
+          "order": "default, branch, branch, default",
+          "default_ms_per_step": runs[False]["ms"], "nar_branch_ms_per_step": runs[True]["ms"],
+          "profiled_steps": profiled_steps,
+          "default_device_busy_ms_per_step": runs[False]["busy_ms"],
+          "nar_branch_device_busy_ms_per_step": runs[True]["busy_ms"],
+          "default_kernels_per_step": runs[False]["kernels"],
+          "nar_branch_kernels_per_step": runs[True]["kernels"],
+          "style_pipe_gradients_all_zero": True,
+          "losses": {"default": runs[False]["losses"], "nar_branch": runs[True]["losses"]}})
+    return runs
 
 
 def phase_flagship_step(torch, tmp, steps=3):
@@ -1473,6 +1898,7 @@ def main():
     phase_profile(torch, synth)
     del synth
     voice = _voice()
+    synth_none = phase_default_decode(torch, voice)
     synth_mk, _, mk_launches = phase_megakernel_slice(torch, voice)
     mk_worst = phase_megakernel_kernel(torch, synth_mk)
     mk_rows, mk_one = phase_megakernel_times(torch, synth_mk, voice)
@@ -1490,9 +1916,14 @@ def main():
         w.launches = 0
     phase_forward_vs_decode(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        phase_train_cli(torch, pathlib.Path(tmp))
+        tmp = pathlib.Path(tmp)
+        phase_train_cli(torch, tmp)
+        ck_launches = phase_checkpoint_serving(torch, tmp, voice)
+        released_launches = phase_released_weights(torch, tmp, voice)
         torch.cuda.empty_cache()
-        phase_flagship_step(torch, pathlib.Path(tmp))
+        phase_flagship_step(torch, tmp)
+        phase_style_branch(torch, synth_none, tmp)
+    del synth_none
     train_launches = {k: w.launches for k, w in wrappers.items()}
     emit({"phase": "training_main_path", "launches": train_launches})
     for k, n in train_launches.items():
@@ -1514,6 +1945,7 @@ def main():
         "l2_hot_ms": mean("kernel_l2_hot_ms"), "bias_ms": mean("kernel_bias_ms"),
         "bias_l2_hot_ms": mean("kernel_bias_l2_hot_ms"),
         "library_l2_hot_ms": mean("library_l2_hot_ms"),
+        "trained_weights_launches": ck_launches["int8_matvec"],
     }, {
         "name": "decode_megakernel", "route": "cuda",
         "source": "mamba_tts_torch/ops/csrc/decode_megakernel.cu",
@@ -1531,6 +1963,8 @@ def main():
                                         for (B, wd, kvd), r in mk_rows.items()},
         "grid": flagship["grid"], "cluster": flagship["cluster"],
         "grid_barriers_per_step": mk_one["grid_barriers_per_step"],
+        "trained_weights_launches": ck_launches["decode_megakernel"],
+        "released_weights_launches": released_launches,
     }] + [{
         "name": k, "route": "cuda", "source": TRAIN_SOURCES[k][0], "replaces": TRAIN_SOURCES[k][1],
         "launches": train_launches[k], **train_rows[k],

@@ -10,13 +10,17 @@ Hopper kernel under ``ops/csrc/`` with a plain PyTorch version beside it.
                the int8 weight-streaming matvec, the decode megakernel, the
                training selective scan (forward, checkpointing forward,
                backward) and flash cross-attention (forward, backward).
-- ``models`` : Mamba decoder stack, text encoder, duration predictor, SMSD
-               head, BERT style-text encoder, FACodec (inference half), the
-               training losses (``MambaTTS.compute_losses``).
-- ``infer``  : int8 step decode and the ``Synthesizer`` serving entry point.
+- ``models`` : Mamba decoder stack and its captured decode, text encoder,
+               duration predictor, SMSD head, the NAR style branch, BERT
+               style-text encoder and FACodec (inference half) with the
+               converters of their released state dicts, the training
+               losses (``MambaTTS.compute_losses``).
+- ``infer``  : int8 step decode and the ``Synthesizer`` serving entry point
+               (seeded weights or the train CLI's checkpoints).
 - ``train``  : Adam with global-norm clipping, checkpoints, the batch
                preparer and the trainer CLI; ``data`` and ``utils`` beside.
-- ``bridge`` : JAX-package parameter trees (numpy) -> port modules.
+- ``bridge`` : JAX-package parameter trees (numpy, or one ``.npz``) -> port
+               modules.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise.

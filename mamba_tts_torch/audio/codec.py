@@ -19,9 +19,10 @@ import numpy as np
 import torch
 
 from mamba_tts_torch.audio import wavio
+from mamba_tts_torch.bridge import facodec_from_params
 from mamba_tts_torch.config import CodecConfig
 from mamba_tts_torch.device import resolve_device
-from mamba_tts_torch.models.facodec import FACodec
+from mamba_tts_torch.models.facodec import FACodec, load_torch_facodec
 from mamba_tts_torch.models.layers import seed_init
 
 WavSource = Union[str, bytes, np.ndarray]
@@ -33,17 +34,26 @@ ID_OFFSET = 2  # codebook id k -> token id k + ID_OFFSET
 
 class FACodecTokenizer:
     """Host wrapper around :class:`FACodec` with the (B, T, 5) contract.
-    ``module`` carries weights (from the bridge); without one the codec is
-    built at a seeded random init."""
+    ``module`` carries weights (from the bridge); ``torch_encoder_ckpt`` and
+    ``torch_decoder_ckpt`` are local paths of the released
+    ``ns3_facodec_{encoder,decoder}.bin`` state dicts, converted on load;
+    without either the codec is built at a seeded random init."""
 
     def __init__(self, cfg: Optional[CodecConfig] = None, module: Optional[FACodec] = None,
-                 seed: int = 0, bucket_seconds: float = 0.8, device="cuda"):
+                 seed: int = 0, bucket_seconds: float = 0.8, device="cuda",
+                 torch_encoder_ckpt: Optional[str] = None,
+                 torch_decoder_ckpt: Optional[str] = None):
         self.cfg = cfg or CodecConfig()
         self.device = resolve_device(device)
         self.hop = self.cfg.hop_length
         self.bucket = int(bucket_seconds * self.cfg.sample_rate)
         if self.bucket % self.hop:
             raise ValueError(f"bucket of {self.bucket} samples is not a multiple of hop {self.hop}")
+        if module is None and (torch_encoder_ckpt or torch_decoder_ckpt):
+            if not (torch_encoder_ckpt and torch_decoder_ckpt):
+                raise ValueError("FACodec needs both the encoder and the decoder checkpoint")
+            module = facodec_from_params(self.cfg, load_torch_facodec(
+                torch_encoder_ckpt, torch_decoder_ckpt, self.cfg))
         if module is None:
             module = seed_init(FACodec(self.cfg), seed)
         self.module = module.to(self.device).eval()

@@ -15,13 +15,14 @@ leaf's module is found by its path and converted by the module's type:
 - raw parameters (Mamba ``conv_w``, ``conv_b``, ``A_log``, ``D``; Snake
   ``alpha``; VQ ``codebook``; ``noise_scale``) -> copied as they are.
 
-Every key must be consumed (``style_pipe`` of the MambaTTS tree excepted:
-the NAR style branch is not ported yet) and every port parameter set;
-anything else raises.
+Every key must be consumed and every port parameter set; anything else
+raises.  :func:`tree_from_npz` reads a tree saved as one ``.npz`` of
+``/``-joined keys, the way in for the JAX package's orbax checkpoints
+(README).
 """
 from __future__ import annotations
 
-from typing import Any, Iterable, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -49,21 +50,16 @@ def _target(mod: nn.Module, leaf: str, value: np.ndarray) -> Tuple[str, np.ndarr
     return leaf, value
 
 
-def load_params(module: nn.Module, params: Mapping[str, Any], skip: Iterable[str] = ()
-                ) -> nn.Module:
+def load_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     """Copy a Flax ``params`` tree (numpy leaves) into ``module`` in place.
 
-    ``skip`` names top-level keys left unconsumed on purpose.  Raises
-    ``KeyError`` for a key with no port parameter, ``ValueError`` for a shape
-    mismatch or for port parameters the tree leaves unset."""
-    skip = set(skip)
+    Raises ``KeyError`` for a key with no port parameter, ``ValueError`` for
+    a shape mismatch or for port parameters the tree leaves unset."""
     own = dict(module.named_parameters())
     assigned = set()
 
     def walk(node: Mapping[str, Any], path: Tuple[str, ...]):
         for key, val in node.items():
-            if not path and key in skip:
-                continue
             if isinstance(val, Mapping):
                 walk(val, path + (key,))
                 continue
@@ -93,7 +89,7 @@ def load_params(module: nn.Module, params: Mapping[str, Any], skip: Iterable[str
 
 def mamba_tts_from_params(cfg: TTSConfig, params: Mapping[str, Any]) -> MambaTTS:
     """The JAX ``MambaTTS`` params tree -> a port :class:`MambaTTS` (CPU)."""
-    return load_params(MambaTTS(cfg), params, skip=("style_pipe",))
+    return load_params(MambaTTS(cfg), params)
 
 
 def facodec_from_params(cfg: CodecConfig, params: Mapping[str, Any]) -> FACodec:
@@ -104,3 +100,17 @@ def facodec_from_params(cfg: CodecConfig, params: Mapping[str, Any]) -> FACodec:
 def bert_from_params(cfg: StyleEncoderConfig, params: Mapping[str, Any]) -> BertEncoder:
     """The JAX ``BertEncoder`` params tree -> a port :class:`BertEncoder` (CPU)."""
     return load_params(BertEncoder(cfg), params)
+
+
+def tree_from_npz(path) -> Dict[str, Any]:
+    """A params tree saved as ``np.savez(path, **{"a/b/kernel": leaf, ...})``
+    -> the nested dict of numpy arrays that :func:`load_params` takes."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as flat:
+        for key in flat.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = flat[key]
+    return tree

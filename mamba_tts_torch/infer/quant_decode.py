@@ -15,14 +15,16 @@ f32 accumulation and bf16 rounding points as the JAX step.
 The JAX package runs the whole decode as one ``jax.lax.scan`` under ``jit``:
 one device program per request.  The port's counterpart, on the card, is a
 CUDA graph of four steps captured once per call and replayed
-(:func:`run_captured`): the step reads its index from a device tensor and
-writes its token, logits and states into fixed buffers in place
-(:func:`decode_step_`), so a replay needs no host work beyond the launch.
-On the CPU the same in-place step runs eagerly.
+(``models.decoder.run_captured``, shared with the full-precision decode):
+the step reads its index from a device tensor and writes its token, logits
+and states into fixed buffers in place (``models.decoder.decode_step_``,
+also shared, given :func:`quant_step_with_kv`), so a replay
+needs no host work beyond the launch.  On the CPU the same in-place step
+runs eagerly.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,13 +32,18 @@ import torch.nn.functional as F
 from mamba_tts_torch.config import DecoderConfig
 from mamba_tts_torch.models.attention import mask_bias
 from mamba_tts_torch.device import on_card
-from mamba_tts_torch.models.decoder import DecodeResult, MambaTTSDecoder, next_token
-from mamba_tts_torch.models.mamba import MambaState, init_mamba_state
+from mamba_tts_torch.models.decoder import (
+    DecodeResult,
+    MambaTTSDecoder,
+    decode_step_,
+    init_carry,
+    run_captured,
+)
+from mamba_tts_torch.models.mamba import MambaState
 from mamba_tts_torch.ops.int8_matvec import int8_matvec, quantize_weight
 from mamba_tts_torch.ops.selective_scan import selective_scan_step
 
 F32 = torch.float32
-DECODE_GRAPH_STEPS = 4  # steps per captured CUDA graph: the JAX scan's unroll=4
 
 
 def _q(dense) -> dict:
@@ -160,28 +167,24 @@ def _attend_step(lp, x_t, KVe, memory_mask, cfg: DecoderConfig):
     return _mv(out, lp["o_proj"], dt_c)
 
 
-def _step_embed(qparams: dict, cfg: DecoderConfig, last_token: torch.Tensor, step,
-                frames_per_stream: int) -> torch.Tensor:
+def _step_embed(qparams: dict, cfg: DecoderConfig, last_token: torch.Tensor,
+                step: torch.Tensor, frames_per_stream: int) -> torch.Tensor:
     """Token + position + quantizer embedding of a step, (B, d).  ``step`` is
-    a Python int, or a (1,) integer tensor on the device (the captured
-    decode's index: ``q_id`` and ``pos_id`` are then found without a host
-    sync, by ``index_select``)."""
+    a (1,) integer tensor on the device (the captured decode's index:
+    ``q_id`` and ``pos_id`` are found without a host sync, by
+    ``index_select``)."""
     F_, Q = frames_per_stream, cfg.num_quantizers
     tok = qparams["token_embed"][last_token[:, 0]]
-    if isinstance(step, torch.Tensor):
-        pos = qparams["pos_embed"].index_select(0, step % F_)
-        quant = qparams["quant_embed"].index_select(0, torch.clamp(step // F_, max=Q - 1))
-    else:
-        pos = qparams["pos_embed"][step % F_]
-        quant = qparams["quant_embed"][min(step // F_, Q - 1)]
+    pos = qparams["pos_embed"].index_select(0, step % F_)
+    quant = qparams["quant_embed"].index_select(0, torch.clamp(step // F_, max=Q - 1))
     return (tok + pos + quant).to(qparams["token_embed"].dtype)
 
 
 def quant_step_with_kv(qparams: dict, cfg: DecoderConfig, last_token: torch.Tensor, KV,
-                       memory_mask, films, states: List[MambaState], step,
+                       memory_mask, films, states: List[MambaState], step: torch.Tensor,
                        frames_per_stream: int) -> Tuple[torch.Tensor, List[MambaState]]:
     """Int8 mirror of ``MambaTTSDecoder.step_with_kv``; logits (B, 1, V).
-    ``step`` is a Python int or a (1,) integer tensor on the device."""
+    ``step`` is a (1,) integer tensor on the device."""
     dt_c = qparams["token_embed"].dtype
     x = _step_embed(qparams, cfg, last_token, step, frames_per_stream)  # (B, d)
     new_states = []
@@ -197,96 +200,6 @@ def quant_step_with_kv(qparams: dict, cfg: DecoderConfig, last_token: torch.Tens
     xf = _layer_norm(x, qparams["norm_out"]).to(F32)
     logits = xf @ qparams["head_k"] + qparams["head_b"]
     return logits[:, None, :], new_states
-
-
-class DecodeCarry(NamedTuple):
-    """The decode's static buffers, updated in place by :func:`decode_step_`
-    (the JAX scan's carry and outputs): the step index (1,) and the last
-    token (B, 1) on the device, the output tokens (B, total), the per-step
-    logits (B, total, V) or None, and every layer's Mamba state."""
-    step: torch.Tensor
-    token: torch.Tensor
-    tokens: torch.Tensor
-    logits: Optional[torch.Tensor]
-    states: List[MambaState]
-
-
-def init_carry(cfg: DecoderConfig, batch: int, total: int, dtype, device,
-               collect_logits: bool) -> DecodeCarry:
-    cc = cfg.with_mamba_dims()
-    return DecodeCarry(
-        step=torch.zeros((1,), dtype=torch.long, device=device),
-        token=torch.full((batch, 1), cfg.bos_id, dtype=torch.long, device=device),
-        tokens=torch.zeros((batch, total), dtype=torch.long, device=device),
-        logits=(torch.zeros((batch, total, cfg.vocab_size_audio), dtype=F32, device=device)
-                if collect_logits else None),
-        states=[init_mamba_state(cc.mamba, batch, dtype, device) for _ in range(cfg.n_layers)])
-
-
-def decode_step_(qparams: dict, cfg: DecoderConfig, KV, memory_mask, films, carry: DecodeCarry,
-                 frames_per_stream: int, temperature: float = 0.0,
-                 generator: Optional[torch.Generator] = None) -> None:
-    """One int8 decode step at the device index ``carry.step``, written into
-    ``carry`` in place: the token and logits go to column ``step`` by
-    ``index_copy_``, the states are copied over, the index advances.  The
-    JAX step is pure and carries its state through ``lax.scan``; the port
-    updates in place so that a captured CUDA graph can replay the step on
-    fixed buffers, with no host sync."""
-    logits, new_states = quant_step_with_kv(qparams, cfg, carry.token, KV, memory_mask, films,
-                                            carry.states, carry.step, frames_per_stream)
-    step_logits, nxt = next_token(logits[:, 0], cfg.num_special_tokens, temperature, 0,
-                                  generator)
-    carry.tokens.index_copy_(1, carry.step, nxt)
-    if carry.logits is not None:
-        carry.logits.index_copy_(1, carry.step, step_logits[:, None])
-    carry.token.copy_(nxt)
-    for st, ns in zip(carry.states, new_states):
-        st.conv.copy_(ns.conv)
-        st.ssm.copy_(ns.ssm)
-    carry.step.add_(1)
-
-
-def graph_split(total: int, steps_per_graph: int = DECODE_GRAPH_STEPS) -> Tuple[int, int]:
-    """(eager warm-up steps, graph replays) of a captured ``total``-step
-    decode: 1 to ``steps_per_graph`` eager steps, then whole graphs."""
-    r = max(0, (total - 1) // steps_per_graph)
-    return total - steps_per_graph * r, r
-
-
-def run_captured(step_fn, total: int, generator: Optional[torch.Generator] = None,
-                 steps_per_graph: int = DECODE_GRAPH_STEPS) -> None:
-    """Run ``step_fn`` (one in-place step on static buffers) ``total`` times
-    on the card: the first ``total - steps_per_graph * r`` steps (1 to
-    ``steps_per_graph``) run eagerly on a side stream, which is also the
-    warm-up that capture needs; then ``steps_per_graph`` steps are captured
-    into one CUDA graph and replayed ``r`` times.  This is the counterpart of
-    the JAX package's ``jax.lax.scan(body, ..., unroll=4)`` under ``jit``.
-    ``generator`` (sampled decode) is registered with the graph, so every
-    replay draws fresh numbers from it.  A failed capture raises.
-
-    ``int8_matvec.launches`` counts kernel executions: the calls made while
-    capturing are taken back, and each replay adds the graph's count."""
-    warm, r = graph_split(total, steps_per_graph)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warm):
-            step_fn()
-    torch.cuda.current_stream().wait_stream(side)
-    if r == 0:
-        return
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
-    before = int8_matvec.launches
-    with torch.cuda.graph(graph):
-        for _ in range(steps_per_graph):
-            step_fn()
-    per_graph = int8_matvec.launches - before
-    int8_matvec.launches = before
-    for _ in range(r):
-        graph.replay()
-    int8_matvec.launches += per_graph * r
 
 
 @torch.no_grad()
@@ -307,7 +220,7 @@ def greedy_decode_int8(
     """``greedy_decode`` with the int8 step.  Memory K/V, mask and FiLM are
     projected once at full precision; ``int8_kv`` then stores K/V as int8.
     On the card the step loop replays a captured CUDA graph
-    (:func:`run_captured`); on the CPU it runs :func:`decode_step_` eagerly."""
+    (:func:`run_captured`); on the CPU it runs ``decode_step_`` eagerly."""
     c = decoder.cfg
     B = text_hidden.shape[0]
     total = c.num_quantizers * frames_per_stream
@@ -317,12 +230,16 @@ def greedy_decode_int8(
         KV = quantize_kv(KV)
     carry = init_carry(c, B, total, decoder.dtype, text_hidden.device, collect_logits)
 
+    def step(token, states, index):
+        return quant_step_with_kv(qparams, c, token, KV, memory_mask, films, states, index,
+                                  frames_per_stream)
+
     def step_fn():
-        decode_step_(qparams, c, KV, memory_mask, films, carry, frames_per_stream, temperature,
-                     generator)
+        decode_step_(step, carry, c.num_special_tokens, temperature, 0, generator)
 
     if on_card(text_hidden):
-        run_captured(step_fn, total, generator if temperature > 0.0 else None)
+        run_captured(step_fn, total, generator if temperature > 0.0 else None,
+                     counters=(int8_matvec,))
     else:
         for _ in range(total):
             step_fn()

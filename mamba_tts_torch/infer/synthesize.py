@@ -15,7 +15,10 @@ whole decode in one launch of the Hopper kernel of
 ``ops/decode_megakernel.py``, greedy or Gumbel-max sampled, with the
 weight/K-V dtypes chosen per batch and memory length by its planner; a
 batch the planner finds no fit for takes the int8 step decode).
-Mesh-parallel serving is not ported yet and raises ``NotImplementedError``.
+:func:`load_synthesizer` serves the newest checkpoint of the port's train
+CLI (configured by the ``config.json`` beside it) and the released FACodec
+state dicts from local paths.  Mesh-parallel serving is not ported yet and
+raises ``NotImplementedError``.
 
 Runs on the CUDA card unless ``device="cpu"`` is passed; with no card it
 raises rather than falling back.
@@ -23,17 +26,19 @@ raises rather than falling back.
 CLI:
     python -m mamba_tts_torch.infer.synthesize --text "hello world" \\
         --style_prompt "speak fast" --voice_wav prompt.wav --output out.wav \\
-        [--quant megakernel] [--device cuda]
+        [--checkpoint_dir checkpoints] [--quant megakernel] [--device cuda]
 """
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from mamba_tts_torch import config as config_lib
 from mamba_tts_torch.audio.codec import FACodecTokenizer
 from mamba_tts_torch.config import TTSConfig
 from mamba_tts_torch.device import resolve_device
@@ -49,6 +54,7 @@ from mamba_tts_torch.ops.decode_megakernel import (
     megakernel_max_batch,
 )
 from mamba_tts_torch.text.processor import PhonemeFrontend
+from mamba_tts_torch.train import state as state_lib
 
 # Steps per grid step of the TPU megakernel; the Hopper kernel loops over the
 # steps itself, so the value is only validated and results do not depend on it.
@@ -326,23 +332,41 @@ class Synthesizer:
         return wavs, info
 
 
+def checkpoint_config(checkpoint_dir: Optional[str]) -> Optional[TTSConfig]:
+    """The config that the train CLI wrote beside its checkpoints
+    (``<checkpoint_dir>/config.json``), or None."""
+    path = Path(checkpoint_dir) / "config.json" if checkpoint_dir is not None else None
+    return config_lib.from_json(path.read_text()) if path and path.is_file() else None
+
+
 def load_synthesizer(cfg: Optional[TTSConfig] = None, checkpoint_dir: Optional[str] = None,
                      seed: int = 0, codec_ckpts=None, quant: str = "none", mesh=None,
                      device="cuda") -> Synthesizer:
-    """A :class:`Synthesizer` at a seeded random init (the model from
-    ``seed``; FACodec and BERT from seed 0, as in the JAX package).
-    Checkpoint loading is not ported yet and raises."""
-    if checkpoint_dir is not None or codec_ckpts:
-        raise NotImplementedError(
-            "checkpoint loading (orbax trees, FACodec and BERT checkpoints) is not "
-            "ported yet (ROADMAP queue 1); load_synthesizer builds seeded random "
-            "weights only")
+    """A :class:`Synthesizer` over the newest checkpoint of the port's train
+    CLI in ``checkpoint_dir`` (``<step>/state.pt``), or at a seeded random
+    init (``seed``) when there is none, as the JAX package does.  With
+    ``cfg`` None the model configures itself from the ``config.json``
+    beside the checkpoints.  A checkpoint whose keys or shapes differ from
+    the model raises.  ``codec_ckpts`` = (encoder, decoder) local paths of
+    the released FACodec state dicts; without them FACodec, like BERT, is at
+    a seeded init (seed 0)."""
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
-    cfg = cfg or TTSConfig()
+    if cfg is None:
+        cfg = checkpoint_config(checkpoint_dir) or TTSConfig()
     dev = resolve_device(device)
-    model = seed_init(MambaTTS(cfg), seed)
-    return Synthesizer(cfg, model, quant=quant, device=dev)
+    model = MambaTTS(cfg)
+    params, restored = (state_lib.restore_params(checkpoint_dir) if checkpoint_dir is not None
+                        else (None, False))
+    if restored:
+        state_lib.copy_params(dict(model.named_parameters()), params)
+    else:
+        seed_init(model, seed)
+    tokenizer = None
+    if codec_ckpts:
+        tokenizer = FACodecTokenizer(cfg.codec, device=dev, torch_encoder_ckpt=codec_ckpts[0],
+                                     torch_decoder_ckpt=codec_ckpts[1])
+    return Synthesizer(cfg, model, tokenizer=tokenizer, quant=quant, device=dev)
 
 
 def main(argv=None):
@@ -381,11 +405,10 @@ def main(argv=None):
     if args.dp_serving:
         raise NotImplementedError(_MESH_TODO)
 
-    from mamba_tts_torch import config as config_lib
     from mamba_tts_torch.audio.wavio import write_wav
 
-    cfg = (config_lib.from_json(open(args.config_json).read())
-           if args.config_json else TTSConfig())
+    cfg = (config_lib.from_json(open(args.config_json).read()) if args.config_json
+           else checkpoint_config(args.checkpoint_dir) or TTSConfig())
     if args.bert_vocab:
         cfg = config_lib.override(cfg, "style_encoder.bert_vocab", args.bert_vocab)
     ckpts = ((args.facodec_encoder_ckpt, args.facodec_decoder_ckpt)

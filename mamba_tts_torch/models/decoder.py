@@ -12,8 +12,13 @@ flattened quantizer-major with ``pos = tile(arange(T), Q)`` and
 ``q_id = min(step // F, Q-1)`` and ``pos_id = step % F``.
 
 :func:`greedy_decode` projects every layer's memory K/V and FiLM parameters
-once, then loops over the Q*F steps in Python over device tensors with no
-host synchronisation per token.  ``forward`` (teacher forcing, training) runs
+once, then runs the Q*F steps as the JAX package's jitted ``lax.scan`` does
+in one device program: on the card a CUDA graph of four in-place steps
+(:func:`decode_step_`: the step index is a device tensor, token, logits and
+states are written into fixed buffers) captured once per call and replayed
+(:func:`run_captured`); on the CPU the same in-place step runs eagerly.
+The functional ``step_with_kv`` (returned states) is the step it runs and
+the reference it is held to.  ``forward`` (teacher forcing, training) runs
 its scans and long-query attention through the Hopper kernels on the card;
 with ``DecoderConfig.remat`` each layer is recomputed in the backward
 (``torch.utils.checkpoint``), as ``nn.remat`` does in the JAX package.
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from mamba_tts_torch.config import DecoderConfig
+from mamba_tts_torch.device import on_card
 from mamba_tts_torch.models.attention import CrossAttention
 from mamba_tts_torch.models.layers import Dense, Embed, LayerNorm, parse_dtype
 from mamba_tts_torch.models.mamba import MambaBlock, MambaState, init_mamba_state
@@ -146,9 +152,11 @@ class MambaTTSDecoder(nn.Module):
                 x, _ = layer(x, memory, z_style, memory_mask)
         return self.head(self.norm_out(x).to(torch.float32))
 
-    def _embed_step(self, last_token: torch.Tensor, step: int, frames_per_stream: int):
-        q_id = min(step // frames_per_stream, self.cfg.num_quantizers - 1)
-        pos_id = step % frames_per_stream
+    def _embed_step(self, last_token: torch.Tensor, step: torch.Tensor, frames_per_stream: int):
+        """``step`` is a (1,) integer tensor on the device (the captured
+        decode's index, read without a host sync)."""
+        q_id = torch.clamp(step // frames_per_stream, max=self.cfg.num_quantizers - 1)[None]
+        pos_id = (step % frames_per_stream)[None]
         return (self.token_embed(last_token) + self.pos_embed(pos_id)
                 + self.quant_embed(q_id))
 
@@ -161,9 +169,10 @@ class MambaTTSDecoder(nn.Module):
         films = None if z_style is None else [layer.film_params(z_style) for layer in self.layers]
         return KV, memory_mask, films
 
-    def step_with_kv(self, last_token, KV, memory_mask, films, mamba_states, step: int,
-                     frames_per_stream: int):
-        """One decode step; last_token (B, 1) -> (logits (B, 1, V), states)."""
+    def step_with_kv(self, last_token, KV, memory_mask, films, mamba_states,
+                     step: torch.Tensor, frames_per_stream: int):
+        """One decode step; last_token (B, 1) -> (logits (B, 1, V), states).
+        ``step`` is a (1,) integer tensor on the device."""
         x = self._embed_step(last_token, step, frames_per_stream)
         new_states = []
         for layer, (K, V), film, st in zip(self.layers, KV, films, mamba_states):
@@ -200,24 +209,100 @@ def next_token(step_logits: torch.Tensor, num_special: int, temperature: float, 
     return step_logits, nxt
 
 
-def run_decode_loop(step_fn, batch: int, total: int, bos_id: int, num_special: int,
-                    temperature: float, top_k: int, generator, collect_logits: bool,
-                    device) -> DecodeResult:
-    """The autoregressive loop shared by the plain and int8 decodes.
-    ``step_fn(token (B, 1), step) -> logits (B, 1, V)`` carries its own state.
-    Tokens and logits stay on the device; nothing syncs with the host."""
-    token = torch.full((batch, 1), bos_id, dtype=torch.long, device=device)
-    tokens = torch.empty((batch, total), dtype=torch.long, device=device)
-    logits_out = []
-    for step in range(total):
-        step_logits, token = next_token(
-            step_fn(token, step)[:, 0], num_special, temperature, top_k, generator)
-        tokens[:, step] = token[:, 0]
-        if collect_logits:
-            logits_out.append(step_logits)
-    logits = (torch.stack(logits_out, dim=1) if collect_logits
-              else torch.zeros((batch, 0), device=device))
-    return DecodeResult(tokens=tokens, logits=logits)
+DECODE_GRAPH_STEPS = 4  # steps per captured CUDA graph: the JAX scan's unroll=4
+
+
+class DecodeCarry(NamedTuple):
+    """The decode's static buffers, updated in place by :func:`decode_step_`
+    (the JAX scan's carry and outputs): the step index (1,) and the last
+    token (B, 1) on the device, the output tokens (B, total), the per-step
+    logits (B, total, V) or None, and every layer's Mamba state."""
+    step: torch.Tensor
+    token: torch.Tensor
+    tokens: torch.Tensor
+    logits: Optional[torch.Tensor]
+    states: List[MambaState]
+
+
+def init_carry(cfg: DecoderConfig, batch: int, total: int, dtype, device,
+               collect_logits: bool) -> DecodeCarry:
+    cc = cfg.with_mamba_dims()
+    return DecodeCarry(
+        step=torch.zeros((1,), dtype=torch.long, device=device),
+        token=torch.full((batch, 1), cfg.bos_id, dtype=torch.long, device=device),
+        tokens=torch.zeros((batch, total), dtype=torch.long, device=device),
+        logits=(torch.zeros((batch, total, cfg.vocab_size_audio), dtype=torch.float32,
+                            device=device) if collect_logits else None),
+        states=[init_mamba_state(cc.mamba, batch, dtype, device) for _ in range(cfg.n_layers)])
+
+
+def decode_step_(step_fn, carry: DecodeCarry, num_special: int, temperature: float = 0.0,
+                 top_k: int = 0, generator: Optional[torch.Generator] = None) -> None:
+    """One decode step at the device index ``carry.step``, written into
+    ``carry`` in place.  ``step_fn(token (B, 1), states, step (1,))`` returns
+    (logits (B, 1, V), new states): ``MambaTTSDecoder.step_with_kv`` or the
+    int8 ``quant_step_with_kv`` with the request's constants bound.  The next
+    token and the masked logits go to column ``step`` by ``index_copy_``, the
+    states are copied over, the index advances.  The JAX step is pure and
+    carries its state through ``lax.scan``; the port updates in place so that
+    a captured CUDA graph can replay the step on fixed buffers, with no host
+    sync."""
+    logits, new_states = step_fn(carry.token, carry.states, carry.step)
+    step_logits, nxt = next_token(logits[:, 0], num_special, temperature, top_k, generator)
+    carry.tokens.index_copy_(1, carry.step, nxt)
+    if carry.logits is not None:
+        carry.logits.index_copy_(1, carry.step, step_logits[:, None])
+    carry.token.copy_(nxt)
+    for st, ns in zip(carry.states, new_states):
+        st.conv.copy_(ns.conv)
+        st.ssm.copy_(ns.ssm)
+    carry.step.add_(1)
+
+
+def graph_split(total: int, steps_per_graph: int = DECODE_GRAPH_STEPS) -> Tuple[int, int]:
+    """(eager warm-up steps, graph replays) of a captured ``total``-step
+    decode: 1 to ``steps_per_graph`` eager steps, then whole graphs."""
+    r = max(0, (total - 1) // steps_per_graph)
+    return total - steps_per_graph * r, r
+
+
+def run_captured(step_fn, total: int, generator: Optional[torch.Generator] = None,
+                 steps_per_graph: int = DECODE_GRAPH_STEPS, counters: Sequence = ()) -> None:
+    """Run ``step_fn`` (one in-place step on static buffers) ``total`` times
+    on the card: the first ``total - steps_per_graph * r`` steps (1 to
+    ``steps_per_graph``) run eagerly on a side stream, which is also the
+    warm-up that capture needs; then ``steps_per_graph`` steps are captured
+    into one CUDA graph and replayed ``r`` times.  This is the counterpart of
+    the JAX package's ``jax.lax.scan(body, ..., unroll=4)`` under ``jit``.
+    ``generator`` (sampled decode) is registered with the graph, so every
+    replay draws fresh numbers from it.  A failed capture raises.
+
+    ``counters`` are kernel wrappers whose ``launches`` count executions:
+    the calls made while capturing are taken back, and each replay adds the
+    graph's count."""
+    warm, r = graph_split(total, steps_per_graph)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warm):
+            step_fn()
+    torch.cuda.current_stream().wait_stream(side)
+    if r == 0:
+        return
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    before = [c.launches for c in counters]
+    with torch.cuda.graph(graph):
+        for _ in range(steps_per_graph):
+            step_fn()
+    per_graph = [c.launches - b for c, b in zip(counters, before)]
+    for c, b in zip(counters, before):
+        c.launches = b
+    for _ in range(r):
+        graph.replay()
+    for c, n in zip(counters, per_graph):
+        c.launches += n * r
 
 
 @torch.no_grad()
@@ -237,19 +322,28 @@ def greedy_decode(
 ) -> DecodeResult:
     """Autoregressive decode over Q * frames_per_stream steps from BOS.
     ``temperature == 0`` -> greedy argmax; otherwise sampling with
-    ``generator``."""
+    ``generator``.  On the card the step loop replays a captured CUDA graph
+    (:func:`run_captured`); on the CPU it runs :func:`decode_step_` eagerly."""
     c = decoder.cfg
     B = text_hidden.shape[0]
     Q = num_streams if num_streams is not None else c.num_quantizers
+    total = Q * frames_per_stream
     KV, memory_mask, films = decoder.project_memories(
         text_hidden, text_mask, ref_hidden, ref_mask, z_style)
-    states = decoder.init_states(B)
+    carry = init_carry(c, B, total, decoder.dtype, text_hidden.device, collect_logits)
 
-    def step_fn(token, step):
-        nonlocal states
-        logits, states = decoder.step_with_kv(
-            token, KV, memory_mask, films, states, step, frames_per_stream)
-        return logits
+    def step(token, states, index):
+        return decoder.step_with_kv(token, KV, memory_mask, films, states, index,
+                                    frames_per_stream)
 
-    return run_decode_loop(step_fn, B, Q * frames_per_stream, c.bos_id, c.num_special_tokens,
-                           temperature, top_k, generator, collect_logits, text_hidden.device)
+    def step_fn():
+        decode_step_(step, carry, c.num_special_tokens, temperature, top_k, generator)
+
+    if on_card(text_hidden):
+        run_captured(step_fn, total, generator if temperature > 0.0 else None)
+    else:
+        for _ in range(total):
+            step_fn()
+    logits = (carry.logits if collect_logits
+              else torch.zeros((B, 0), device=text_hidden.device))
+    return DecodeResult(tokens=carry.tokens, logits=logits)

@@ -8,15 +8,21 @@ counterpart of ``mamba_tts_tpu/models/facodec.py``.
 Convolutions run channels-first (B, C, T), PyTorch's layout; the public
 methods keep the JAX package's shapes.  Weight-normed convs are held fused.
 Stream order is [prosody, residual x3, content].  Attribute names follow the
-Flax parameter tree so the weight bridge maps them one-to-one.  The VQ
-training losses, ``grad_reverse`` and the torch->flax checkpoint converter
-are training/checkpoint code and are not part of this port yet.
+Flax parameter tree so the weight bridge maps them one-to-one.
+
+:func:`convert_torch_facodec` / :func:`load_torch_facodec` map the released
+``ns3_facodec_{encoder,decoder}.bin`` state dicts (upstream ``ns3_codec``
+naming) onto that tree as numpy arrays; ``bridge.facodec_from_params`` then
+loads it and checks every leaf and shape.  The VQ training losses and
+``grad_reverse`` are training code and are not part of this port yet.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+import os
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -322,3 +328,160 @@ class FACodec(nn.Module):
 
     def decode(self, vq_ids: torch.Tensor, spk: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.decoder(self.latents_from_ids(vq_ids), spk)
+
+
+# --------------------------------------------------------------------------
+# released torch state dicts (ns3_codec naming) -> the Flax-layout tree
+# --------------------------------------------------------------------------
+
+def _np(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        x = x.detach().cpu().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _fused_wn(sd: Dict, prefix: str) -> np.ndarray:
+    """torch weight norm fused: w = g * v / ||v||, the norm over the axes
+    where g is singleton (``dim=0`` keeps the out-channel axis).  A layer
+    without weight norm gives its plain ``.weight``."""
+    if prefix + ".weight" in sd:
+        return _np(sd[prefix + ".weight"])
+    g = _np(sd[prefix + ".weight_g"])
+    v = _np(sd[prefix + ".weight_v"])
+    axes = tuple(i for i, n in enumerate(g.shape) if n == 1)
+    norm = np.sqrt((v ** 2).sum(axis=axes, keepdims=True))
+    return g * v / np.maximum(norm, 1e-12)
+
+
+class _Converter:
+    """Collects the Flax-layout leaves, one torch module at a time."""
+
+    def __init__(self):
+        self.out: Dict = {}
+
+    def _set(self, path: Sequence[str], value: np.ndarray):
+        d = self.out
+        for p in path[:-1]:
+            d = d.setdefault(p, {})
+        d[path[-1]] = value
+
+    def _bias(self, sd, tkey, fpath):
+        if tkey + ".bias" in sd:
+            self._set([*fpath, "bias"], _np(sd[tkey + ".bias"]))
+
+    def conv(self, sd, tkey, *fpath):
+        """Conv1d (out, in, k) -> kernel (k, in, out)."""
+        self._set([*fpath, "kernel"], _fused_wn(sd, tkey).transpose(2, 1, 0))
+        self._bias(sd, tkey, fpath)
+
+    def conv_t(self, sd, tkey, *fpath):
+        """ConvTranspose1d (in, out, k) -> kernel (k, in, out), flipped along
+        k (the JAX package's ``ConvTranspose1dTorch`` layout)."""
+        w = _fused_wn(sd, tkey)
+        self._set([*fpath, "kernel"], w[:, :, ::-1].transpose(2, 0, 1).copy())
+        self._bias(sd, tkey, fpath)
+
+    def conv1x1_as_dense(self, sd, tkey, *fpath):
+        """1x1 Conv1d (out, in, 1) -> Dense kernel (in, out)."""
+        self._set([*fpath, "kernel"], _fused_wn(sd, tkey)[:, :, 0].T)
+        self._bias(sd, tkey, fpath)
+
+    def dense(self, sd, tkey, *fpath):
+        self._set([*fpath, "kernel"], _np(sd[tkey + ".weight"]).T)
+        self._bias(sd, tkey, fpath)
+
+    def ln(self, sd, tkey, *fpath):
+        self._set([*fpath, "scale"], _np(sd[tkey + ".weight"]))
+        self._set([*fpath, "bias"], _np(sd[tkey + ".bias"]))
+
+    def snake(self, sd, tkey, *fpath):
+        """Snake1d alpha (1, C, 1) -> (C,)."""
+        self._set([*fpath, "alpha"], _np(sd[tkey + ".alpha"]).reshape(-1))
+
+    def raw(self, sd, tkey, *fpath):
+        self._set([*fpath], _np(sd[tkey]))
+
+    def mha(self, sd, tprefix, *fpath):
+        """nn.MultiheadAttention: ``in_proj_weight`` split into q/k/v Dense."""
+        w = _np(sd[tprefix + ".in_proj_weight"])
+        b = _np(sd[tprefix + ".in_proj_bias"])
+        d = w.shape[0] // 3
+        for i, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            self._set([*fpath, name, "kernel"], w[i * d:(i + 1) * d].T)
+            self._set([*fpath, name, "bias"], b[i * d:(i + 1) * d])
+        self.dense(sd, tprefix + ".out_proj", *fpath, "o_proj")
+
+
+def _residual_unit(cv: _Converter, sd, tprefix: str, *fpath):
+    cv.snake(sd, f"{tprefix}.block.0", *fpath, "snake1")
+    cv.conv(sd, f"{tprefix}.block.1", *fpath, "conv1")
+    cv.snake(sd, f"{tprefix}.block.2", *fpath, "snake2")
+    cv.conv(sd, f"{tprefix}.block.3", *fpath, "conv2")
+
+
+def convert_torch_facodec(encoder_sd: Dict, decoder_sd: Dict, cfg: CodecConfig) -> Dict:
+    """Map upstream ``ns3_codec`` encoder and decoder state dicts onto the
+    FACodec tree (nested dict of numpy arrays, the JAX package's layout).
+    A missing torch key raises ``KeyError``; the gradient-reversal heads and
+    other training-only keys are left unread by design.  Coverage and
+    shapes are checked where the tree is loaded
+    (``bridge.facodec_from_params``)."""
+    if cfg.spk_dim != cfg.latent_dim:
+        raise ValueError("released FACodec timbre embeddings are latent_dim-sized; got "
+                         f"spk_dim={cfg.spk_dim} != latent_dim={cfg.latent_dim}")
+    cv = _Converter()
+    n = len(cfg.up_ratios)
+
+    # encoder: block.0 .. block.{n + 2}
+    cv.conv(encoder_sd, "block.0", "encoder", "stem")
+    for i in range(n):
+        t, f = f"block.{i + 1}.block", f"block_{i}"
+        for j in range(3):
+            _residual_unit(cv, encoder_sd, f"{t}.{j}", "encoder", f, f"res_{j}")
+        cv.snake(encoder_sd, f"{t}.3", "encoder", f, "snake")
+        cv.conv(encoder_sd, f"{t}.4", "encoder", f, "down")
+    cv.snake(encoder_sd, f"block.{n + 1}", "encoder", "snake_out")
+    cv.conv(encoder_sd, f"block.{n + 2}", "encoder", "head")
+
+    # quantizers: upstream ModuleList order [prosody, content, residual]
+    for fname, b, num_q in (("vq_prosody", 0, cfg.vq_num_q_p), ("vq_content", 1, cfg.vq_num_q_c),
+                            ("vq_residual", 2, cfg.vq_num_q_r)):
+        for j in range(num_q):
+            t = f"quantizer.{b}.quantizers.{j}"
+            cv.conv1x1_as_dense(decoder_sd, f"{t}.in_proj", fname, f"vq_{j}", "in_proj")
+            cv.conv1x1_as_dense(decoder_sd, f"{t}.out_proj", fname, f"vq_{j}", "out_proj")
+            cv.raw(decoder_sd, f"{t}.codebook.weight", fname, f"vq_{j}", "codebook")
+
+    # timbre transformer (timbre_norm has no parameters)
+    for i in range(4):
+        t, f = f"timbre_encoder.layers.{i}", ("timbre", f"layer_{i}")
+        cv.ln(decoder_sd, f"{t}.ln_1", *f, "ln_1")
+        cv.mha(decoder_sd, f"{t}.self_attn", *f)
+        cv.ln(decoder_sd, f"{t}.ln_2", *f, "ln_2")
+        cv.conv(decoder_sd, f"{t}.ffn.ffn_1", *f, "ffn", "ffn_1")
+        cv.dense(decoder_sd, f"{t}.ffn.ffn_2", *f, "ffn", "ffn_2")
+    cv.ln(decoder_sd, "timbre_encoder.last_ln", "timbre", "last_ln")
+    cv.dense(decoder_sd, "timbre_linear", "decoder", "timbre_linear")
+
+    # generator: model.0 .. model.{n + 2}
+    cv.conv(decoder_sd, "model.0", "decoder", "stem")
+    for i in range(n):
+        t, f = f"model.{i + 1}.block", f"block_{i}"
+        cv.snake(decoder_sd, f"{t}.0", "decoder", f, "snake")
+        cv.conv_t(decoder_sd, f"{t}.1", "decoder", f, "up")
+        for j in range(3):
+            _residual_unit(cv, decoder_sd, f"{t}.{2 + j}", "decoder", f, f"res_{j}")
+    cv.snake(decoder_sd, f"model.{n + 1}", "decoder", "snake_out")
+    cv.conv(decoder_sd, f"model.{n + 2}", "decoder", "head")
+    return cv.out
+
+
+def load_torch_facodec(encoder_ckpt_path: str, decoder_ckpt_path: str, cfg: CodecConfig) -> Dict:
+    """Read ``ns3_facodec_encoder.bin`` / ``ns3_facodec_decoder.bin`` from
+    local paths and convert them (:func:`convert_torch_facodec`)."""
+    for p in (encoder_ckpt_path, decoder_ckpt_path):
+        if not os.path.exists(p):
+            raise FileNotFoundError(f"FACodec checkpoint not found: {p}")
+    enc_sd = torch.load(encoder_ckpt_path, map_location="cpu", weights_only=True)
+    dec_sd = torch.load(decoder_ckpt_path, map_location="cpu", weights_only=True)
+    return convert_torch_facodec(enc_sd, dec_sd, cfg)

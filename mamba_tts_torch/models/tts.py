@@ -1,10 +1,11 @@
 """Top-level MambaTTS model — counterpart of ``mamba_tts_tpu/models/tts.py``.
 
 Holds the trainable components under the JAX tree's top-level names
-(``text_encoder``, ``dur_predictor``, ``smsd``, ``decoder``).  The NAR style
-branch (``style_pipe``) is not used when serving and stays out of the
-default training graph (``use_nar_branch=False`` in the JAX package); it is
-not ported yet.
+(``text_encoder``, ``dur_predictor``, ``smsd``, ``style_pipe``, ``decoder``),
+so a checkpoint holds the JAX package's whole tree.  The NAR style branch
+(``style_pipe``, :meth:`MambaTTS.nar_frames`) is not used when serving, and
+no loss consumes it: ``compute_losses(use_nar_branch=True)`` computes it
+and ignores it, as the JAX package does, and its gradients are zero.
 
 Training graph (:meth:`MambaTTS.compute_losses`):
 
@@ -24,6 +25,7 @@ import torch.nn as nn
 from mamba_tts_torch.config import TTSConfig
 from mamba_tts_torch.models.decoder import MambaTTSDecoder
 from mamba_tts_torch.models.smsd import SMSD, sample_mixture
+from mamba_tts_torch.models.style import StyleConditioningPipeline
 from mamba_tts_torch.models.text_encoder import DurationPredictor, TextEncoder, duration_loss
 
 
@@ -47,6 +49,9 @@ class MambaTTS(nn.Module):
     def __init__(self, cfg: TTSConfig):
         super().__init__()
         self.cfg = cfg
+        # registered first, so that ``seed_init`` (last module first) draws it
+        # last and every other component keeps the draws it had without it
+        self.style_pipe = StyleConditioningPipeline(cfg.style)
         self.text_encoder = TextEncoder(cfg.text_encoder)
         self.dur_predictor = DurationPredictor(cfg.duration)
         self.smsd = SMSD(cfg.smsd)
@@ -57,13 +62,17 @@ class MambaTTS(nn.Module):
     def compute_losses(self, batch: Dict[str, torch.Tensor], deterministic: bool = False,
                        generator: Optional[torch.Generator] = None,
                        style_k: Optional[torch.Tensor] = None,
-                       style_eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                       style_eps: Optional[torch.Tensor] = None,
+                       use_nar_branch: bool = False) -> Dict[str, torch.Tensor]:
         """batch keys: phoneme_ids (B, L) | text_mask (B, L) bool | style_bert
         (B, bert_dim) | spk_embs (B, style_dim) | target_codec (B, S, Q)
         shifted ids | target_frames (B,) | voice_codec (B, S, Q).
 
         Dropout, ``NoiseNet`` and the ``sample_mixture`` draw of ``z_style``
-        take ``generator``; ``style_k`` / ``style_eps`` hand the draw in."""
+        take ``generator``; ``style_k`` / ``style_eps`` hand the draw in.
+        ``use_nar_branch`` also runs the NAR style branch on the predicted
+        durations, after everything else (so that its dropout draws move no
+        other), and consumes nothing of it."""
         c = self.cfg
         dec_cfg = c.decoder
         tr = c.train
@@ -100,6 +109,11 @@ class MambaTTS(nn.Module):
                               quant_ids=quant_ids, pos_ids=pos_ids)
         loss_codec = codec_ce_loss(logits, targets, pad_id=dec_cfg.pad_id)
 
+        if use_nar_branch:
+            self.style_pipe(text_hidden, z_style, torch.exp(log_dur).detach(), text_mask,
+                            max_frame_len=dec_cfg.max_len // dec_cfg.num_quantizers,
+                            deterministic=deterministic, generator=generator)
+
         loss_total = tr.w_codec * loss_codec + tr.w_dur * loss_dur + tr.w_smsd * loss_smsd
         return {"loss_total": loss_total, "loss_codec": loss_codec, "loss_dur": loss_dur,
                 "loss_smsd": loss_smsd}
@@ -121,3 +135,7 @@ class MambaTTS(nn.Module):
         ref_hidden = self.decoder.embed_codec_tokens(voice_3d.long())
         ref_mask = voice_3d.reshape(voice_codec.shape[0], -1) != self.cfg.decoder.pad_id
         return ref_hidden, ref_mask
+
+    def nar_frames(self, text_hidden, z_style, durations, text_mask=None, max_frame_len=1024):
+        """The NAR style branch: (styled_frames, output_lengths, style_K, style_V)."""
+        return self.style_pipe(text_hidden, z_style, durations, text_mask, max_frame_len)

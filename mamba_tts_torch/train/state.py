@@ -11,8 +11,9 @@
   parameters, updated in place) and the optimizer state.
 - :func:`save_checkpoint` / :func:`restore_checkpoint` / :func:`restore_params`:
   the port's own ``torch.save`` of ``{step, params, opt_state}`` in a
-  step-numbered directory under ``checkpoint_dir``.  Reading the JAX
-  package's orbax checkpoints is not ported.
+  step-numbered directory under ``checkpoint_dir``; :func:`copy_params`
+  loads saved params into a model's, keys and shapes checked.  The JAX
+  package's orbax checkpoints come in through the weight bridge (README).
 """
 from __future__ import annotations
 
@@ -124,6 +125,24 @@ def restore_params(checkpoint_dir: str, step: Optional[int] = None
     return (None, False) if saved is None else (saved["params"], True)
 
 
+def copy_params(own: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor]) -> None:
+    """Copy ``params`` (name -> tensor, as a checkpoint holds them) into the
+    tensors of ``own`` (a model's ``named_parameters()``) in place.  Raises
+    ``KeyError`` naming the keys the model lacks and those the checkpoint
+    lacks, and ``ValueError`` naming each shape that differs."""
+    unknown, missing = sorted(set(params) - set(own)), sorted(set(own) - set(params))
+    if unknown or missing:
+        raise KeyError(f"checkpoint keys the model lacks: {unknown[:20]}; "
+                       f"model parameters the checkpoint lacks: {missing[:20]}")
+    bad = [f"{n}: model {tuple(p.shape)} vs checkpoint {tuple(params[n].shape)}"
+           for n, p in own.items() if p.shape != params[n].shape]
+    if bad:
+        raise ValueError("checkpoint shapes differ from the model's: " + "; ".join(bad[:20]))
+    with torch.no_grad():
+        for n, p in own.items():
+            p.copy_(params[n])
+
+
 def restore_checkpoint(checkpoint_dir: str, state: TrainState, step: Optional[int] = None
                        ) -> Tuple[TrainState, bool]:
     """Copy the latest (or given) checkpoint into ``state``'s tensors in
@@ -131,9 +150,8 @@ def restore_checkpoint(checkpoint_dir: str, state: TrainState, step: Optional[in
     saved = _load(checkpoint_dir, step)
     if saved is None:
         return state, False
+    copy_params(state.params, saved["params"])
     with torch.no_grad():
-        for n, p in state.params.items():
-            p.copy_(saved["params"][n])
         for key in ("mu", "nu"):
             for n, t in state.opt_state[key].items():
                 t.copy_(saved["opt_state"][key][n])

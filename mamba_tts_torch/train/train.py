@@ -13,9 +13,9 @@ On the card every decoder layer's selective scan and long-query
 cross-attention run through the Hopper kernels (``ops/pallas_scan.py``,
 ``ops/flash_attention.py``), forward and backward.  Paths of the JAX CLI that
 are not ported raise ``NotImplementedError`` naming their ROADMAP item:
-``--mesh`` (queue 1 item 16, parallelism), ``--preprocessed_dir`` (item 17,
-offline-preprocessed data) and ``--loader grain`` (item 13's grain-style data
-loader).
+``--mesh`` (queue 1 item 7, parallelism), ``--preprocessed_dir`` and
+``--loader grain`` (item 4, offline-preprocessed data and the grain-style
+data loader).
 """
 from __future__ import annotations
 
@@ -53,7 +53,7 @@ def init_params(model: MambaTTS, seed: int = 0,
     else:
         from mamba_tts_torch.bridge import load_params
 
-        load_params(model, params, skip=("style_pipe",))
+        load_params(model, params)
     return dict(model.named_parameters())
 
 
@@ -78,17 +78,21 @@ def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device) -> Di
     return out
 
 
-def make_train_step(model: MambaTTS, tx: state_lib.Optimizer, seed: int = 0):
+def make_train_step(model: MambaTTS, tx: state_lib.Optimizer, seed: int = 0,
+                    use_nar_branch: bool = False):
     """(state, batch) -> (state advanced one step, losses as 0-dim tensors).
     The step's gradients of every parameter feed ``tx`` (a parameter the
-    graph does not reach gets a zero gradient)."""
+    graph does not reach, ``style_pipe`` always, gets a zero gradient).
+    ``use_nar_branch`` runs the NAR style branch in the step, as the JAX
+    package's flag does; no loss consumes it."""
 
     def train_step(st: state_lib.TrainState, batch: Dict[str, torch.Tensor]):
         device = next(iter(st.params.values())).device
         for p in st.params.values():
             p.grad = None
         losses = model.compute_losses(batch, deterministic=False,
-                                      generator=step_generator(seed, st.step, device))
+                                      generator=step_generator(seed, st.step, device),
+                                      use_nar_branch=use_nar_branch)
         losses["loss_total"].backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in st.params.items()}
@@ -143,11 +147,11 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     args = parser.parse_args(argv)
 
     if args.mesh:
-        raise _not_ported("--mesh (dp/tp parallelism)", "item 16")
+        raise _not_ported("--mesh (dp/tp parallelism)", "item 7")
     if args.preprocessed_dir:
-        raise _not_ported("--preprocessed_dir (offline-preprocessed data)", "item 17")
+        raise _not_ported("--preprocessed_dir (offline-preprocessed data)", "item 4")
     if args.loader == "grain":
-        raise _not_ported("--loader grain (the grain-style data loader)", "item 13")
+        raise _not_ported("--loader grain (the grain-style data loader)", "item 4")
     device = resolve_device(args.device)
 
     cfg = config_lib.from_json(open(args.config_json).read()) if args.config_json else TTSConfig()

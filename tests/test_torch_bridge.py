@@ -48,23 +48,22 @@ def _bert_tree():
                                   jax.random.PRNGKey(0))["params"])
 
 
-def _leaves(tree, skip=()):
-    return [(jax.tree_util.keystr(p), v) for p, v in jax.tree_util.tree_leaves_with_path(tree)
-            if not any(jax.tree_util.keystr(p).startswith(f"['{s}']") for s in skip)]
+def _leaves(tree):
+    return [(jax.tree_util.keystr(p), v) for p, v in jax.tree_util.tree_leaves_with_path(tree)]
 
 
 @pytest.mark.parametrize("which", ["mamba_tts", "facodec", "bert"])
 def test_every_leaf_consumed_and_every_parameter_set(which):
-    if which == "mamba_tts":
-        tree, skip = _mamba_tts_tree(), ("style_pipe",)
+    if which == "mamba_tts":  # the whole tree, the NAR style branch (style_pipe) included
+        tree = _mamba_tts_tree()
         module = mamba_tts_from_params(T_CFG, tree)
     elif which == "facodec":
-        tree, skip = _facodec_tree(), ()
+        tree = _facodec_tree()
         module = facodec_from_params(T_CFG.codec, tree)
     else:
-        tree, skip = _bert_tree(), ()
+        tree = _bert_tree()
         module = bert_from_params(T_CFG.style_encoder, tree)
-    leaves = _leaves(tree, skip)
+    leaves = _leaves(tree)
     n_port = sum(p.numel() for p in module.parameters())
     assert n_port == sum(v.size for _, v in leaves)
     assert len(list(module.parameters())) == len(leaves)
@@ -112,12 +111,22 @@ def test_missing_key_and_shape_mismatch_raise():
 
 
 def test_style_pipe_is_the_only_skipped_subtree():
+    """No subtree is skipped any more: ``style_pipe`` is consumed, leaf for
+    leaf, and a misspelt subtree still raises."""
     tree = _mamba_tts_tree()
+    module = mamba_tts_from_params(T_CFG, tree)
+    sp = tree["style_pipe"]
+    np.testing.assert_array_equal(module.style_pipe.cross_attn_2.ffn1.weight.detach().numpy(),
+                                  sp["cross_attn_2"]["ffn1"]["kernel"].T)
+    np.testing.assert_array_equal(module.style_pipe.style_proj.value_ln.weight.detach().numpy(),
+                                  sp["style_proj"]["value_ln"]["scale"])
     tree["style_pipe_typo"] = tree["style_pipe"]
-    with pytest.raises(KeyError):
+    with pytest.raises(KeyError, match="style_pipe_typo"):
         mamba_tts_from_params(T_CFG, tree)
-    with pytest.raises(KeyError):
-        load_params(MambaTTS(T_CFG), _mamba_tts_tree())  # style_pipe without the skip
+    tree = _mamba_tts_tree()
+    del tree["style_pipe"]
+    with pytest.raises(ValueError, match="style_pipe"):
+        load_params(MambaTTS(T_CFG), tree)
 
 
 def test_bridge_imports_no_jax():

@@ -5,21 +5,28 @@ package, so it runs on a machine that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (``--noconftest`` skips ``tests/conftest.py``, which configures jax.)"""
+import numpy as np
 import pytest
 import torch
 
-from mamba_tts_torch.config import DecoderConfig, MambaConfig
+from mamba_tts_torch import config as config_lib
+from mamba_tts_torch.config import DecoderConfig, MambaConfig, StylePipelineConfig, TTSConfig
 from mamba_tts_torch.infer import quant_decode as qd
 from mamba_tts_torch.infer.quant_decode import quantize_decoder_params
+from mamba_tts_torch.infer.synthesize import load_synthesizer
 from mamba_tts_torch.models.attention import CrossAttention
-from mamba_tts_torch.models.decoder import MambaTTSDecoder
+from mamba_tts_torch.models.decoder import MambaTTSDecoder, decode_step_, greedy_decode, init_carry
 from mamba_tts_torch.models.layers import seed_init
 from mamba_tts_torch.models.mamba import MambaBlock
+from mamba_tts_torch.models.style import StyleConditioningPipeline
+from mamba_tts_torch.models.tts import MambaTTS
 from mamba_tts_torch.ops import decode_megakernel as mk
 from mamba_tts_torch.ops import flash_attention as fa
 from mamba_tts_torch.ops import int8_matvec as tq
 from mamba_tts_torch.ops import pallas_scan as ps
 from mamba_tts_torch.ops import selective_scan as ts
+from mamba_tts_torch.train import state as state_lib
+from mamba_tts_torch.train import train as train_lib
 
 pytestmark = pytest.mark.cuda
 
@@ -85,7 +92,9 @@ def _eager_int8_decode(dec, qp, th, z, frames, kw, int8_kv, temperature=0.0, gen
         total = cfg.num_quantizers * frames
         carry = qd.init_carry(cfg, th.shape[0], total, dec.dtype, th.device, True)
         for _ in range(total):
-            qd.decode_step_(qp, cfg, KV, mm, films, carry, frames, temperature, generator)
+            decode_step_(lambda tok, st, i: qd.quant_step_with_kv(qp, cfg, tok, KV, mm, films,
+                                                                  st, i, frames),
+                         carry, cfg.num_special_tokens, temperature, 0, generator)
     return carry
 
 
@@ -131,6 +140,94 @@ def test_captured_sampled_int8_decode_on_card(card):
     eager = _eager_int8_decode(dec, qp, th, z, frames, kw, False, 0.8,
                                torch.Generator(device=card).manual_seed(0))
     assert torch.equal(first, eager.tokens)
+
+
+def _eager_none_decode(dec, th, z, frames, kw, temperature=0.0, generator=None):
+    """The step loop of ``greedy_decode`` (quant "none") without capture:
+    every in-place step launched eagerly on the card."""
+    cfg = dec.cfg
+    with torch.no_grad():
+        KV, mm, films = dec.project_memories(th, kw["text_mask"], kw["ref_hidden"], None, z)
+        carry = init_carry(cfg, th.shape[0], cfg.num_quantizers * frames, dec.dtype, th.device,
+                           True)
+        for _ in range(cfg.num_quantizers * frames):
+            decode_step_(lambda tok, st, i: dec.step_with_kv(tok, KV, mm, films, st, i, frames),
+                         carry, cfg.num_special_tokens, temperature, 0, generator)
+    return carry
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_captured_none_decode_matches_eager_on_card(card, B, temperature):
+    """``greedy_decode`` (quant "none") on the card replays a captured CUDA
+    graph (one eager warm-up step, then 4-step graphs over 27 steps); its
+    tokens and logits equal the eager in-place step loop's, greedy and
+    sampled (the generator registered with the graph)."""
+    dec = _small_decoder(card)
+    th, z, kw = _decode_inputs(card, dec, B, seed=B)
+    frames = 9
+
+    def gen():
+        return torch.Generator(device=card).manual_seed(3) if temperature > 0 else None
+
+    got = greedy_decode(dec, th, z, frames, temperature=temperature, generator=gen(),
+                        collect_logits=True, **kw)
+    want = _eager_none_decode(dec, th, z, frames, kw, temperature, gen())
+    torch.cuda.synchronize()
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.logits, want.logits)
+
+
+def test_nar_frames_on_card_matches_cpu(card):
+    """The NAR style branch at d_model 128 in bf16: the card against the CPU
+    within 2e-2 of the largest magnitude (the bf16 tolerance of
+    tests/test_torch_style.py), the frame counts equal."""
+    cfg = TTSConfig(style=StylePipelineConfig(d_style=32, d_model=128, num_heads=4))
+    pipe = seed_init(StyleConditioningPipeline(cfg.style), 0).eval()
+    g = torch.Generator().manual_seed(0)
+    th = torch.randn((3, 20, 128), generator=g)
+    z = torch.randn((3, 32), generator=g)
+    dur = torch.rand((3, 20), generator=g) * 4
+    mask = torch.arange(20)[None] < torch.tensor([[20], [13], [7]])
+    with torch.no_grad():
+        want = pipe(th, z, dur, mask, 64)
+        got = pipe.to(card)(th.to(card), z.to(card), dur.to(card), mask.to(card), 64)
+    assert torch.equal(got[1].cpu(), want[1])
+    for a, b in zip((got[0], got[2], got[3]), (want[0], want[2], want[3])):
+        assert float((a.cpu().float() - b.float()).abs().max()) <= 2e-2 * float(b.float().abs().max())
+
+
+def test_checkpoint_round_trip_on_card(card, tmp_path):
+    """Two train steps on the card at the smoke config, saved as the train
+    CLI saves them, then served by ``load_synthesizer(checkpoint_dir=...)``
+    with no config: the config and every parameter come back, and a
+    request decodes (captured) to finite audio."""
+    cfg = config_lib.from_json(open("tests/smoke_config.json").read())
+    (tmp_path / "config.json").write_text(config_lib.to_json(cfg))
+    model = seed_init(MambaTTS(cfg), 0).to(card)
+    tx = state_lib.make_optimizer(1e-3)
+    st = state_lib.create_train_state(dict(model.named_parameters()), tx)
+    step = train_lib.make_train_step(model, tx)
+    B, S, Q = 2, 16, cfg.decoder.num_quantizers
+    g = torch.Generator(device=card).manual_seed(0)
+    batch = {"phoneme_ids": torch.randint(1, 50, (B, 12), generator=g, device=card),
+             "text_mask": torch.ones((B, 12), dtype=torch.bool, device=card),
+             "style_bert": torch.randn((B, cfg.smsd.bert_dim), generator=g, device=card),
+             "spk_embs": torch.randn((B, cfg.smsd.style_dim), generator=g, device=card),
+             "target_codec": torch.randint(2, 12, (B, S, Q), generator=g, device=card),
+             "target_frames": torch.full((B,), S, device=card),
+             "voice_codec": torch.randint(2, 12, (B, S, Q), generator=g, device=card)}
+    for _ in range(2):
+        st, _ = step(st, batch)
+    state_lib.save_checkpoint(str(tmp_path), st)
+    synth = load_synthesizer(checkpoint_dir=str(tmp_path), device=card)
+    assert synth.cfg == cfg
+    for n, p in synth.model.named_parameters():
+        assert torch.equal(p, st.params[n]), n
+    t = torch.arange(3200) / 16000.0
+    wav, info = synth.synthesize("hello there", "calm", (0.3 * torch.sin(2 * torch.pi * 220 * t)).numpy(),
+                                 frames=64)
+    assert wav.shape == (64 * cfg.codec.hop_length,) and bool(np.isfinite(wav).all())
 
 
 def _small_cfg(d=64, H=4):

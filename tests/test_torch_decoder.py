@@ -17,7 +17,15 @@ from mamba_tts_tpu.models.mamba import MambaBlock as JMambaBlock
 from mamba_tts_torch.bridge import load_params
 from mamba_tts_torch.config import DecoderConfig, MambaConfig
 from mamba_tts_torch.infer import quant_decode as tqd
-from mamba_tts_torch.models.decoder import MambaTTSDecoder, greedy_decode, run_decode_loop
+from mamba_tts_torch.models.decoder import (
+    DecodeResult,
+    MambaTTSDecoder,
+    decode_step_,
+    graph_split,
+    greedy_decode,
+    init_carry,
+    next_token,
+)
 from mamba_tts_torch.models.mamba import MambaBlock
 
 KW = dict(codebook_size=24, d_model=32, n_layers=2, n_heads=4, d_ff=64, d_style=16,
@@ -33,6 +41,20 @@ def _np(tree):
 
 def _t(x):
     return torch.from_numpy(np.array(x))
+
+
+def run_decode_loop(step_fn, batch, total, temperature=0.0, top_k=0, generator=None):
+    """The functional autoregressive loop over Python-int steps, the
+    reference the in-place decodes are held to: ``step_fn(token (B, 1),
+    step (1,)) -> logits (B, 1, V)`` carries its own state."""
+    token = torch.full((batch, 1), T_CFG.bos_id, dtype=torch.long)
+    tokens, logits = [], []
+    for step in range(total):
+        step_logits, token = next_token(step_fn(token, torch.tensor([step]))[:, 0],
+                                        T_CFG.num_special_tokens, temperature, top_k, generator)
+        tokens.append(token)
+        logits.append(step_logits)
+    return DecodeResult(tokens=torch.cat(tokens, dim=1), logits=torch.stack(logits, dim=1))
 
 
 def assert_streams_agree(port_tokens, jax_tokens, jax_logits, margin=1e-3, min_agree=0.99):
@@ -125,7 +147,8 @@ def test_step_with_kv_logits_match_jax(setup):
             tok = flat[:, t:t + 1]
             lg, states = dec.apply(v, tok, KV, mm, films, states, jnp.asarray(t), F,
                                    method=JDecoder.step_with_kv)
-            lg_t, states_t = port.step_with_kv(_t(tok).long(), KV_t, mm_t, films_t, states_t, t, F)
+            lg_t, states_t = port.step_with_kv(_t(tok).long(), KV_t, mm_t, films_t, states_t,
+                                               torch.tensor([t]), F)
             np.testing.assert_allclose(lg_t.numpy(), np.asarray(lg), atol=TOL, rtol=TOL)
 
 
@@ -143,7 +166,8 @@ def test_port_decode_matches_forward_prefix(setup):
         flat = tokens.reshape(2, -1)
         steps = []
         for t in range(flat.shape[1]):
-            lg, states = port.step_with_kv(flat[:, t:t + 1], KV, mm, films, states, t, F)
+            lg, states = port.step_with_kv(flat[:, t:t + 1], KV, mm, films, states,
+                                           torch.tensor([t]), F)
             steps.append(lg[:, 0])
     np.testing.assert_allclose(torch.stack(steps, 1).numpy(), full.numpy(), atol=2e-4, rtol=2e-4)
 
@@ -199,7 +223,9 @@ def test_in_place_step_decode_matches_jax_and_python_int_loop(setup, mode):
             KV = tqd.quantize_kv(KV)
         carry = tqd.init_carry(T_CFG, 2, total, port.dtype, torch.device("cpu"), True)
         for _ in range(total):
-            tqd.decode_step_(qp, T_CFG, KV, mm, films, carry, F)
+            decode_step_(lambda tok, st, i: tqd.quant_step_with_kv(qp, T_CFG, tok, KV, mm, films,
+                                                                   st, i, F),
+                         carry, T_CFG.num_special_tokens)
         states = port.init_states(2)
 
         def step_fn(token, step):
@@ -208,8 +234,7 @@ def test_in_place_step_decode_matches_jax_and_python_int_loop(setup, mode):
                                                     step, F)
             return logits
 
-        loop = run_decode_loop(step_fn, 2, total, T_CFG.bos_id, T_CFG.num_special_tokens, 0.0,
-                               0, None, True, torch.device("cpu"))
+        loop = run_decode_loop(step_fn, 2, total)
     assert int(carry.step) == total
     assert_streams_agree(carry.tokens.numpy(), res_j.tokens, res_j.logits)
     assert_logits_until_flip(carry.logits.numpy(), res_j.logits, carry.tokens.numpy(),
@@ -220,11 +245,50 @@ def test_in_place_step_decode_matches_jax_and_python_int_loop(setup, mode):
         assert torch.equal(got.conv, want.conv) and torch.equal(got.ssm, want.ssm)
 
 
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_in_place_none_step_decode_equals_the_functional_loop(setup, temperature):
+    """``greedy_decode`` (quant "none"): its in-place step (device step
+    index, token and logits written by index, states copied in place), run
+    eagerly on the CPU for all 30 steps, gives the tokens and, bit for bit,
+    the logits and states of the functional ``step_with_kv`` loop over
+    Python-int steps; greedy, and sampled with top-k from one seed on both
+    sides (the same draws)."""
+    s = setup
+    port, F = s["port"], s["F"]
+    cond = (_t(s["th"]), _t(s["tm"]), _t(s["rh"]), _t(s["rm"]), _t(s["z"]))
+    total = T_CFG.num_quantizers * F
+    with torch.no_grad():
+        got = greedy_decode(port, cond[0], cond[4], F, text_mask=cond[1], ref_hidden=cond[2],
+                            ref_mask=cond[3], temperature=temperature, top_k=8,
+                            generator=torch.Generator().manual_seed(11), collect_logits=True)
+        KV, mm, films = port.project_memories(*cond)
+        carry = init_carry(T_CFG, 2, total, port.dtype, torch.device("cpu"), True)
+        g = torch.Generator().manual_seed(11)
+        for _ in range(total):  # the in-place step alone, for its states
+            decode_step_(lambda tok, st, i: port.step_with_kv(tok, KV, mm, films, st, i, F),
+                         carry, T_CFG.num_special_tokens, temperature, 8, g)
+        states = port.init_states(2)
+
+        def step_fn(token, step):
+            nonlocal states
+            logits, states = port.step_with_kv(token, KV, mm, films, states, step, F)
+            return logits
+
+        loop = run_decode_loop(step_fn, 2, total, temperature, 8,
+                               torch.Generator().manual_seed(11))
+    for res in (got, carry):
+        assert torch.equal(res.tokens, loop.tokens)
+        assert torch.equal(res.logits, loop.logits)
+    assert int(carry.step) == total
+    for st, want in zip(carry.states, states):
+        assert torch.equal(st.conv, want.conv) and torch.equal(st.ssm, want.ssm)
+
+
 @pytest.mark.parametrize("steps_per_graph", [1, 4, 5])
 def test_graph_split_covers_every_step(steps_per_graph):
     """The captured decode runs 1 to ``steps_per_graph`` eager warm-up steps,
     then whole graphs, and covers every step of any length."""
     for total in range(1, 60):
-        warm, replays = tqd.graph_split(total, steps_per_graph)
+        warm, replays = graph_split(total, steps_per_graph)
         assert 1 <= warm <= steps_per_graph
         assert warm + replays * steps_per_graph == total

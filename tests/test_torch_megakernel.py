@@ -208,7 +208,8 @@ def _step_decode_logits(p, forced):
     with torch.no_grad():
         for t in range(forced.shape[1]):
             lg, states = tqd.quant_step_with_kv(
-                p.tq, c, _t(forced[:, t:t + 1]).long(), KV, mm, films, states, t, F)
+                p.tq, c, _t(forced[:, t:t + 1]).long(), KV, mm, films, states,
+                torch.tensor([t]), F)
             out.append(lg[:, 0].float())
     return torch.stack(out, dim=1).numpy()  # (B, total, V)
 

@@ -27,7 +27,9 @@ from mamba_tts_torch.bridge import bert_from_params, facodec_from_params, mamba_
 from mamba_tts_torch.infer import quant_decode as tqd
 from mamba_tts_torch.infer import synthesize as tsyn_mod
 from mamba_tts_torch.infer.synthesize import Synthesizer, load_synthesizer
+from mamba_tts_torch.models.layers import seed_init
 from mamba_tts_torch.models.style_text_encoder import StyleTextEncoder
+from mamba_tts_torch.models.tts import MambaTTS
 from mamba_tts_torch.ops import decode_megakernel as tmk
 
 SMOKE = open("tests/smoke_config.json").read()
@@ -131,11 +133,12 @@ def _port_teacher_forced(pair, tsyn, voice_codec, inputs, frames):
     out = []
     for t in range(inputs.shape[1]):
         tok = _t(inputs[:, t:t + 1]).long()
+        step = torch.tensor([t])
         if tsyn.quant == "none":
-            lg, states = dec.step_with_kv(tok, KV, mm, films, states, t, frames)
+            lg, states = dec.step_with_kv(tok, KV, mm, films, states, step, frames)
         else:
             lg, states = tqd.quant_step_with_kv(tsyn._qparams, dec.cfg, tok, KV, mm, films,
-                                                states, t, frames)
+                                                states, step, frames)
         out.append(lg[:, 0].numpy())
     return np.stack(out, axis=1)
 
@@ -400,13 +403,18 @@ def test_megakernel_batch_is_chunked(pair, monkeypatch):
 
 
 @pytest.mark.parametrize("what", ["mesh", "checkpoint", "no_card"])
-def test_unported_paths_raise(what):
+def test_unported_paths_raise(what, tmp_path):
     if what == "mesh":
         with pytest.raises(NotImplementedError, match="mesh"):
             load_synthesizer(T_CFG, mesh=object(), device="cpu")
-    elif what == "checkpoint":
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            load_synthesizer(T_CFG, checkpoint_dir="checkpoints", device="cpu")
+    elif what == "checkpoint":  # served since checkpoints are ported: a missing directory
+        # gives the seeded init, as in the JAX package
+        synth = load_synthesizer(T_CFG, checkpoint_dir=str(tmp_path / "none"), seed=3,
+                                 device="cpu")
+        want = seed_init(MambaTTS(T_CFG), 3).state_dict()
+        got = synth.model.state_dict()
+        assert set(got) == set(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
     elif torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     else:

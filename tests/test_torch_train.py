@@ -99,7 +99,7 @@ def test_compute_losses_and_every_gradient_match_jax(slice_setup):
         assert abs(float(losses[key]) - want) <= LOSS_TOL * abs(want), key
     losses["loss_total"].backward()
     # the JAX gradient tree in the port's layout: the bridge's own mapping
-    want = dict(load_params(MambaTTS(s["tcfg"]), s["grads"], skip=("style_pipe",)).named_parameters())
+    want = dict(load_params(MambaTTS(s["tcfg"]), s["grads"]).named_parameters())
     for name, p in port.named_parameters():
         w = want[name].detach()
         g = p.grad if p.grad is not None else torch.zeros_like(p)
