@@ -134,6 +134,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              use_nar_branch=True)`` at B=10 beside the default step: finite
              losses, every style_pipe gradient exactly zero, ms per step,
              and device busy ms and kernels per step under torch.profiler.
+15. codec training — ``python -m mamba_tts_torch.train.train_codec
+             --synthetic`` at its defaults (full-width FACodec, 28.8M
+             parameters, B=8, 0.8 s segments), 5 steps, then again with
+             --adversarial (three discriminator resolutions), cuDNN TF32 as
+             PyTorch leaves it (on): finite losses under the JAX metric
+             names, a checkpoint; ms a step (median, first step excluded),
+             peak memory, device busy and idle share under torch.profiler.
+             Then one GAN step at the smoke config's codec on the card
+             against the CPU: losses within 1e-2, each component's gradient
+             within 5e-2 of its largest magnitude.
+16. preprocessing — ``DatasetPreprocessor`` and ``ParallelDatasetPreprocessor``
+             (2 spawned G2P workers, BERT-base and FACodec on the card in
+             chunks of 16) over 32 synthetic items: 32 x 4 tensors each,
+             equal codec ids, items/s of each.
+17. training from preprocessed data — the train CLI at its defaults with
+             --preprocessed_dir for 4 steps, --resume to 6, then --loader
+             grain --grain_workers 2 for 4 steps, the training kernels'
+             counts set to 0 just before each and read just after (the
+             checkpointing scan, the scan backward and both flash kernels
+             launched in each); ms a step; data seconds per batch at B=10 of
+             ``OfflineDataset.batches``, ``dataset.batches`` + ``BatchPreparer``
+             and the worker loader + ``BatchPreparer``.
 14. card vs CPU — 2 layers at full width, one batch, deterministic: losses
              and each component's gradient on the card against the CPU's
              plain path; 10 steps on a fixed batch lower the codec loss.
@@ -1876,6 +1898,302 @@ def phase_card_vs_cpu(torch, frames=128):
     return row
 
 
+CODEC_KEYS = ["loss_total", "loss_wave", "loss_stft", "loss_mel", "loss_vq"]
+GAN_KEYS = CODEC_KEYS + ["loss_adv", "loss_fm", "loss_disc"]
+
+
+def _codec_profile(torch, adversarial, B=8, seg=12800, steps=2):
+    """One torch.profiler window over ``steps`` codec train steps at the CLI's
+    defaults (full-width ``CodecConfig()``, B = 8, 0.8 s segments, lr 2e-4),
+    after a warm-up step: device busy ms and idle share a step (against the
+    profiled wall), device kernels a step and the kernels that take the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mamba_tts_torch.config import CodecConfig
+    from mamba_tts_torch.models.discriminator import MultiSTFTDiscriminator
+    from mamba_tts_torch.models.facodec import FACodec
+    from mamba_tts_torch.models.layers import seed_init
+    from mamba_tts_torch.train import state as state_lib
+    from mamba_tts_torch.train import train_codec as tc
+
+    model = seed_init(FACodec(CodecConfig()), 0).cuda()
+    tx = state_lib.make_optimizer(2e-4)
+    states = [state_lib.create_train_state(dict(model.named_parameters()), tx)]
+    if adversarial:
+        disc = seed_init(MultiSTFTDiscriminator(tc.discriminator_resolutions(seg)), 1).cuda()
+        tx_d = state_lib.make_optimizer(2e-4)
+        states.append(state_lib.create_train_state(dict(disc.named_parameters()), tx_d))
+        step = tc.make_gan_codec_train_step(model, disc, tx, tx_d)
+    else:
+        step = tc.make_codec_train_step(model, tx)
+    wav = 0.3 * torch.randn((B, seg), generator=torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+
+    def run():
+        out = step(*states, wav)
+        states[:] = out[:-1]
+        return {k: float(v) for k, v in out[-1].items()}
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t0) * 1e3
+    kernels, busy, count = _device(prof)
+    return {"profiled_steps": steps, "profiled_wall_ms_per_step": pwall / steps,
+            "device_busy_ms_per_step": busy / steps, "device_idle_share": 1 - busy / pwall,
+            "device_kernels_per_step": count / steps, "top_kernels": _top(kernels, steps)}
+
+
+def phase_codec_train(torch, tmp, steps=5):
+    """``python -m mamba_tts_torch.train.train_codec --synthetic`` at its
+    defaults (full-width ``CodecConfig()``, 28.8M parameters, B = 8, 0.8 s
+    segments = 12,800 samples, lr 2e-4), ``steps`` steps, then again with
+    ``--adversarial`` (three discriminator resolutions), with cuDNN's TF32
+    as PyTorch leaves it for a user (on): finite losses under the JAX metric
+    names, a checkpoint written; ms a step (median, the first step
+    excluded), peak allocated memory, and ``_codec_profile``'s window."""
+    import math
+    import statistics
+
+    from mamba_tts_torch.train import train_codec as tc
+
+    rows = []
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for adversarial, keys in ((False, CODEC_KEYS), (True, GAN_KEYS)):
+            mode = "adversarial" if adversarial else "reconstruction"
+            ck = tmp / f"codec_{mode}"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = tc.main(["--synthetic", "--max_steps", str(steps), "--checkpoint_dir", str(ck)]
+                          + (["--adversarial"] if adversarial else []))
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            check(all(list(h)[1:] == keys for h in out["history"]),
+                  f"codec CLI ({mode}): metric names {list(out['history'][0])}")
+            check(all(math.isfinite(h[k]) for h in out["history"] for k in keys),
+                  f"codec CLI ({mode}): a non-finite loss")
+            check((ck / str(steps) / "state.pt").is_file(), f"codec CLI ({mode}): no checkpoint")
+            row = {"phase": "codec_train", "mode": mode, "B": 8, "segment": out["segment"],
+                   "steps": steps, "cudnn_tf32": True,
+                   "ms_per_step_median": statistics.median(out["step_ms"][1:]),
+                   "step_ms": out["step_ms"], "wall_seconds": wall,
+                   "max_memory_allocated_gb": peak / 1e9,
+                   "losses": [{k: h[k] for k in keys} for h in out["history"]],
+                   **_codec_profile(torch, adversarial)}
+            emit(row)
+            rows.append(row)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return rows
+
+
+def phase_codec_card_vs_cpu(torch, B=2, T=3200):
+    """One GAN codec step at the smoke config's codec (kernels halved, as
+    the CPU tests tame the random codec), B = 2, 3,200 samples, cuDNN in full
+    f32, on the card against the CPU: every loss within 1e-2 relative and
+    each component's gradient within 5e-2 of its largest magnitude (the
+    training gates of PERF.md §2)."""
+    from mamba_tts_torch import config as config_lib
+    from mamba_tts_torch.models.discriminator import MultiSTFTDiscriminator
+    from mamba_tts_torch.models.facodec import ConvTranspose1dTorch, FACodec
+    from mamba_tts_torch.models.layers import Conv, Dense, seed_init
+    from mamba_tts_torch.train import state as state_lib
+    from mamba_tts_torch.train import train_codec as tc
+
+    class Recorder(state_lib.Optimizer):
+        def __init__(self):
+            super().__init__(0.0)
+
+        def apply(self, params, grads, opt_state):
+            self.grads = {n: g.detach().float().cpu() for n, g in grads.items()}
+            return opt_state
+
+    cfg = config_lib.from_json(pathlib.Path("tests/smoke_config.json").read_text()).codec
+    wav = 0.3 * torch.randn((B, T), generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = seed_init(FACodec(cfg), 0)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, (Conv, Dense, ConvTranspose1dTorch)):
+                    m.weight.mul_(0.5)
+        model = model.to(dev)
+        disc = seed_init(MultiSTFTDiscriminator(((512, 128), (1024, 256))), 1).to(dev)
+        rg, rd = Recorder(), Recorder()
+        _, _, metrics = tc.make_gan_codec_train_step(model, disc, rg, rd)(
+            state_lib.create_train_state(dict(model.named_parameters()), rg),
+            state_lib.create_train_state(dict(disc.named_parameters()), rd), wav.to(dev))
+        parts = {}
+        for n, g in [*rg.grads.items(), *((f"disc.{n}", g) for n, g in rd.grads.items())]:
+            parts.setdefault(n.split(".")[0], []).append(g.flatten())
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {k: torch.cat(v) for k, v in parts.items()})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    loss_rel = {k: abs(l_gpu[k] - v) / abs(v) for k, v in l_cpu.items()}
+    grad_rel = {k: _errs(g_gpu[k], v)[1] for k, v in g_cpu.items()}
+    emit({"phase": "codec_card_vs_cpu", "B": B, "samples": T, "loss_rel_err": loss_rel,
+          "grad_rel_err": grad_rel, "limits": {"loss": 1e-2, "grad": 5e-2}, "losses_card": l_gpu})
+    for k, v in loss_rel.items():
+        check(v <= 1e-2, f"codec card vs CPU {k}: relative error {v}")
+    check(len(grad_rel) == 7, f"codec card vs CPU: components {sorted(grad_rel)}")
+    for k, v in grad_rel.items():
+        check(v <= 5e-2, f"codec card vs CPU gradient of {k}: relative error {v}")
+
+
+def phase_preprocess(torch, tmp, n_items=32):
+    """Both preprocessors at full width (``TTSConfig()``: BERT-base and
+    FACodec on the card, seeded) over a synthetic corpus of ``n_items`` 0.4 s
+    items: ``DatasetPreprocessor`` (one item at a time) and
+    ``ParallelDatasetPreprocessor`` (2 spawned G2P workers, then BERT and
+    FACodec in chunks of 16, 4 writer threads).  Checks: each directory
+    holds n_items x 4 tensors and the metadata, and their codec ids are
+    equal; items/s of each, its models' construction included and not."""
+    import numpy as np
+
+    from mamba_tts_torch.data.dataset import make_synthetic_dataset
+    from mamba_tts_torch.data.preprocess import DatasetPreprocessor
+    from mamba_tts_torch.data.preprocess_parallel import ParallelDatasetPreprocessor
+
+    csv_path, tar_path = make_synthetic_dataset(str(tmp / "corpus"), n_items=n_items)
+    dirs = {"sequential": tmp / "prep_seq", "parallel": tmp / "prep_par"}
+    t0 = time.perf_counter()
+    seq = DatasetPreprocessor(str(dirs["sequential"]), [tar_path], device="cuda")
+    t1 = time.perf_counter()
+    n_seq = seq.preprocess(csv_path)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del seq
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    par = ParallelDatasetPreprocessor(str(dirs["parallel"]), [tar_path], cpu_workers=2,
+                                      gpu_batch_size=16, io_workers=4, device="cuda")
+    n_par = par.preprocess(csv_path)  # builds its models after the G2P pool
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    for kind, d in dirs.items():
+        files = list((d / "tensors").glob("*.npy"))
+        check(len(files) == 4 * n_items and (d / "metadata.json").is_file(),
+              f"{kind} preprocessing: {len(files)} tensors")
+    codec = {kind: {p.name: np.load(p) for p in (d / "tensors").glob("*_codec.npy")}
+             for kind, d in dirs.items()}
+    equal = sum(np.array_equal(a, codec["parallel"][name]) for name, a in codec["sequential"].items())
+    row = {"phase": "preprocess", "items": n_items, "processed": [n_seq, n_par],
+           "sequential": {"build_seconds": t1 - t0, "preprocess_seconds": t2 - t1,
+                          "items_per_s": n_items / (t2 - t1),
+                          "items_per_s_with_build": n_items / (t2 - t0)},
+           "parallel": {"seconds": t4 - t3, "items_per_s_with_build": n_items / (t4 - t3),
+                        "cpu_workers": 2, "gpu_batch_size": 16},
+           "codec_files_equal": equal}
+    emit(row)
+    check(n_seq == n_par == n_items, f"preprocessed {n_seq} and {n_par} of {n_items} items")
+    check(equal == n_items, f"codec ids differ between the preprocessors: {equal} of {n_items} equal")
+    return {"csv": csv_path, "tar": tar_path, "dir": str(dirs["sequential"])}
+
+
+TRAIN_PATH_KERNELS = ("selective_scan_fwd_ckpt", "selective_scan_bwd", "flash_attention_fwd",
+                      "flash_attention_bwd")  # rows 3, 4 and 6 of PERF.md §6
+
+
+def phase_train_preprocessed(torch, tmp, corpus):
+    """The train CLI at its defaults (full width, B = 10) from
+    ``phase_preprocess``'s directory: ``--preprocessed_dir`` for 4 steps with
+    a checkpoint every 2, then ``--resume`` to 6; then the online path with
+    ``--loader grain --grain_workers 2`` for 4 steps.  The training kernels'
+    counts are set to 0 just before each of the two and read just after:
+    rows 3, 4 and 6 of the kernel table launched in each.  Finite losses,
+    ms a step."""
+    import math
+
+    from mamba_tts_torch.train import train as tr
+
+    wrappers = _wrappers()
+
+    def run(runs):
+        for w in wrappers.values():
+            w.launches = 0
+        outs = [tr.main(a) for a in runs]
+        return outs, {k: w.launches for k, w in wrappers.items()}
+
+    args = ["--preprocessed_dir", corpus["dir"], "--checkpoint_every", "2", "--checkpoint_dir",
+            str(tmp / "ck_prep")]
+    (first, second), prep = run([args + ["--max_steps", "4"], args + ["--max_steps", "6", "--resume"]])
+    (grain,), loader = run([["--synthetic", "--loader", "grain", "--grain_workers", "2",
+                             "--max_steps", "4", "--checkpoint_dir", str(tmp / "ck_grain")]])
+    runs = (first, second, grain)
+    check(all(math.isfinite(v) for r in runs for h in r["history"] for k, v in h.items()
+              if k != "step"), "training from preprocessed data: a non-finite loss")
+    check([(r["start_step"], r["step"]) for r in runs] == [(0, 4), (4, 6), (0, 4)],
+          f"training from preprocessed data: steps {[(r['start_step'], r['step']) for r in runs]}")
+    check((tmp / "ck_prep" / "6" / "state.pt").is_file(), "--preprocessed_dir: no checkpoint 6")
+    row = {"phase": "train_preprocessed", "B": 10,
+           "preprocessed_ms_per_step": first["ms_per_step"],
+           "preprocessed_resumed_ms_per_step": second["ms_per_step"],
+           "grain_loader_ms_per_step": grain["ms_per_step"],
+           "preprocessed_launches": prep, "grain_loader_launches": loader,
+           "loss_total": [h["loss_total"] for r in runs for h in r["history"]]}
+    emit(row)
+    for k in TRAIN_PATH_KERNELS:
+        check(prep[k] > 0 and loader[k] > 0,
+              f"{k} was not launched by training from preprocessed data ({prep[k]}) "
+              f"or through the worker loader ({loader[k]})")
+    return prep, loader
+
+
+def phase_loader_times(torch, corpus, B=10):
+    """Data seconds per batch at B = 10 (the CLI's batch) of three loaders
+    over ``phase_preprocess``'s corpus, each batch ready on the card (a
+    synchronise after each): ``OfflineDataset.batches`` and the device copy;
+    ``dataset.batches`` and ``BatchPreparer`` (G2P, BERT-base and FACodec on
+    the card); the worker loader (2 spawned workers) and ``BatchPreparer``.
+    Each loader's first batch (its start-up) apart from the others."""
+    import statistics
+
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.data.dataset import VccmTTSDataset
+    from mamba_tts_torch.data.grain_pipeline import make_grain_loader
+    from mamba_tts_torch.data.preprocess import OfflineDataset
+    from mamba_tts_torch.train import train as tr
+    from mamba_tts_torch.train.pipeline import BatchPreparer
+
+    cfg = TTSConfig()
+    dev = torch.device("cuda")
+
+    def per_batch(batches):
+        times, t = [], time.perf_counter()
+        for batch in batches:
+            tr.batch_to_device(batch, dev)
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            times.append(now - t)
+            t = now
+        return times
+
+    preparer = BatchPreparer(cfg, device="cuda")
+    dataset = VccmTTSDataset(corpus["csv"], corpus["tar"], seed=0)
+    offline = OfflineDataset(corpus["dir"])
+    preparer(*next(dataset.batches(B, seed=1)))  # the front-ends' first call
+    times = {
+        "offline": per_batch(offline.batches(B, max_text_len=cfg.data.max_text_len, seed=0)),
+        "online_batch_preparer": per_batch(preparer(*b) for b in dataset.batches(B, seed=0)),
+        "worker_loader_batch_preparer": per_batch(
+            preparer(*b) for b in make_grain_loader(dataset, B, seed=0, worker_count=2)),
+    }
+    row = {"phase": "loader_times", "B": B, "items": len(dataset), "seconds_per_batch": times,
+           "first_batch_seconds": {k: v[0] for k, v in times.items()},
+           "later_batches_median_seconds": {k: statistics.median(v[1:]) for k, v in times.items()}}
+    emit(row)
+    check(all(len(v) == len(dataset) // B for v in times.values()),
+          f"loader batches: {({k: len(v) for k, v in times.items()})}")
+    return row
+
+
 def main():
     import torch
 
@@ -1929,6 +2247,19 @@ def main():
     for k, n in train_launches.items():
         check(n > 0, f"{k} was not launched on the main path")
     torch.cuda.empty_cache()
+
+    # codec training, then preprocessing and training from preprocessed data
+    # (its own counts of the training kernels, set to 0 just before each run)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        tmp = pathlib.Path(tmp)
+        phase_codec_train(torch, tmp)
+        phase_codec_card_vs_cpu(torch)
+        torch.cuda.empty_cache()
+        corpus = phase_preprocess(torch, tmp)
+        torch.cuda.empty_cache()
+        prep_launches, loader_launches = phase_train_preprocessed(torch, tmp, corpus)
+        phase_loader_times(torch, corpus)
+    torch.cuda.empty_cache()
     phase_card_vs_cpu(torch)
 
     b1 = [r for r in rows if r["B"] == 1]
@@ -1968,6 +2299,7 @@ def main():
     }] + [{
         "name": k, "route": "cuda", "source": TRAIN_SOURCES[k][0], "replaces": TRAIN_SOURCES[k][1],
         "launches": train_launches[k], **train_rows[k],
+        "preprocessed_launches": prep_launches[k], "grain_loader_launches": loader_launches[k],
     } for k in TRAIN_KERNELS], "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,13 +12,17 @@ Hopper kernel under ``ops/csrc/`` with a plain PyTorch version beside it.
                backward) and flash cross-attention (forward, backward).
 - ``models`` : Mamba decoder stack and its captured decode, text encoder,
                duration predictor, SMSD head, the NAR style branch, BERT
-               style-text encoder and FACodec (inference half) with the
-               converters of their released state dicts, the training
-               losses (``MambaTTS.compute_losses``).
+               style-text encoder and FACodec (with its VQ training losses)
+               with the converters of their released state dicts, the
+               multi-resolution STFT discriminator, the training losses
+               (``MambaTTS.compute_losses``).
 - ``infer``  : int8 step decode and the ``Synthesizer`` serving entry point
                (seeded weights or the train CLI's checkpoints).
 - ``train``  : Adam with global-norm clipping, checkpoints, the batch
-               preparer and the trainer CLI; ``data`` and ``utils`` beside.
+               preparer, the trainer CLI and the codec trainer CLI.
+- ``data``   : the raw corpus, both offline preprocessors and
+               ``OfflineDataset`` (the JAX package's on-disk format), the
+               worker-backed loader; ``audio`` and ``utils`` beside.
 - ``bridge`` : JAX-package parameter trees (numpy, or one ``.npz``) -> port
                modules.
 

@@ -8,6 +8,7 @@ leaf's module is found by its path and converted by the module's type:
 
 - Dense ``kernel (in, out)``               -> ``Linear.weight (out, in)``
 - Conv ``kernel (k, in, out)``             -> ``Conv1d.weight (out, in, k)``
+- 2-D Conv ``kernel (kh, kw, in, out)``    -> ``Conv2d.weight (out, in, kh, kw)``
 - ConvTranspose1dTorch ``kernel (k, in, out)``, stored flipped along k
                                            -> ``ConvTranspose1d.weight (in, out, k)``
 - Embed ``embedding``                      -> ``Embedding.weight``
@@ -29,8 +30,9 @@ import torch
 import torch.nn as nn
 
 from mamba_tts_torch.config import CodecConfig, StyleEncoderConfig, TTSConfig
+from mamba_tts_torch.models.discriminator import MultiSTFTDiscriminator
 from mamba_tts_torch.models.facodec import ConvTranspose1dTorch, FACodec
-from mamba_tts_torch.models.layers import Conv, Dense, Embed, LayerNorm
+from mamba_tts_torch.models.layers import Conv, Conv2d, Dense, Embed, LayerNorm
 from mamba_tts_torch.models.style_text_encoder import BertEncoder
 from mamba_tts_torch.models.tts import MambaTTS
 
@@ -41,6 +43,8 @@ def _target(mod: nn.Module, leaf: str, value: np.ndarray) -> Tuple[str, np.ndarr
         return "weight", np.ascontiguousarray(value[::-1].transpose(1, 2, 0))
     if isinstance(mod, Conv) and leaf == "kernel":
         return "weight", np.ascontiguousarray(value.transpose(2, 1, 0))
+    if isinstance(mod, Conv2d) and leaf == "kernel":
+        return "weight", np.ascontiguousarray(value.transpose(3, 2, 0, 1))
     if isinstance(mod, Dense) and leaf == "kernel":
         return "weight", np.ascontiguousarray(value.T)
     if isinstance(mod, Embed) and leaf == "embedding":
@@ -95,6 +99,13 @@ def mamba_tts_from_params(cfg: TTSConfig, params: Mapping[str, Any]) -> MambaTTS
 def facodec_from_params(cfg: CodecConfig, params: Mapping[str, Any]) -> FACodec:
     """The JAX ``FACodec`` params tree -> a port :class:`FACodec` (CPU)."""
     return load_params(FACodec(cfg), params)
+
+
+def discriminator_from_params(resolutions, params: Mapping[str, Any],
+                              channels: int = 32) -> MultiSTFTDiscriminator:
+    """The JAX ``MultiSTFTDiscriminator`` params tree -> a port
+    :class:`MultiSTFTDiscriminator` at the same resolutions (CPU)."""
+    return load_params(MultiSTFTDiscriminator(resolutions, channels), params)
 
 
 def bert_from_params(cfg: StyleEncoderConfig, params: Mapping[str, Any]) -> BertEncoder:

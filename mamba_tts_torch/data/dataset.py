@@ -7,7 +7,7 @@ Re-designs reference: dataset.py:16-109 — CSV of
 plus a tar(.gz) of WAVs; each example pairs the target utterance with a
 *different random utterance of the same speaker* as the voice prompt.
 
-Fixes vs reference (SURVEY §7 defect 7 area):
+Fixes vs reference (SURVEY §7 defect 7 area), and one of the port's own:
 - ``__len__`` is the CSV row count, not the tar member count
   (reference: dataset.py:82-83 returns the tar count — a latent mismatch).
 - the batch iterator zero-pads waveforms to the batch max instead of
@@ -15,6 +15,9 @@ Fixes vs reference (SURVEY §7 defect 7 area):
   dataset.py:100-109).
 - rows whose audio is missing from the tar are skipped-and-counted at init
   (the data pipeline's skip-and-count failure semantics, SURVEY §5).
+- each process reads the archive through its own handle (a loader worker,
+  forked or spawned, opens it again), where the JAX package's copy opens
+  it once in ``__init__``.
 
 Returns numpy arrays; all device work happens downstream.
 """
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import csv
 import io
+import os
 import tarfile
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -47,21 +51,11 @@ class VccmTTSDataset:
 
         # Prefer the C++ runtime (native/libttsdata.so: indexed tar + WAV
         # decode + resample, multi-threaded); fall back to tarfile + scipy.
-        self._native = None
-        if use_native:
-            from mamba_tts_torch.data import native
-
-            if native.available():
-                try:
-                    self._native = native.NativeTarReader(audio_root)
-                except Exception:
-                    self._native = None
-
+        self.use_native = use_native
+        self._open()
         if self._native is not None:
-            self.tar = None
             self.members = {n: n for n in self._native.names()}
         else:
-            self.tar = tarfile.open(audio_root, "r:*")
             self.members = {
                 m.name: m
                 for m in self.tar.getmembers()
@@ -86,8 +80,32 @@ class VccmTTSDataset:
     def _member_name(item_name: str) -> str:
         return str(Path(item_name.replace("-", "/")).with_suffix(".wav"))
 
+    def _open(self) -> None:
+        """Open the archive for this process.  A file handle shared with a
+        forked loader worker would share its offset too, so a process that
+        did not open it (a worker, or an unpickled copy) opens its own."""
+        self._pid = os.getpid()
+        self._native = self.tar = None
+        if self.use_native:
+            from mamba_tts_torch.data import native
+
+            if native.available():
+                try:
+                    self._native = native.NativeTarReader(self.audio_root)
+                except Exception:
+                    self._native = None
+        if self._native is None:
+            self.tar = tarfile.open(self.audio_root, "r:*")
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_native"] = state["tar"] = state["_pid"] = None
+        return state
+
     def _wav(self, item_name: str) -> np.ndarray:
         name = self._member_name(item_name)
+        if self._pid != os.getpid():
+            self._open()
         if self._native is not None:
             return self._native.read_wav(name, target_sr=self.sample_rate)
         data = self.tar.extractfile(self.members[name]).read()

@@ -1,5 +1,5 @@
-"""FACodec-compatible factorized neural audio codec, inference half —
-counterpart of ``mamba_tts_tpu/models/facodec.py``.
+"""FACodec-compatible factorized neural audio codec — counterpart of
+``mamba_tts_tpu/models/facodec.py``.
 
     wave (B, T) @16 kHz --encode--> latents @80 Hz (hop 200 = prod(2,4,5,5))
         --factorize + cosine VQ--> ids (num_q, B, T_f) + speaker embedding
@@ -13,14 +13,20 @@ Flax parameter tree so the weight bridge maps them one-to-one.
 :func:`convert_torch_facodec` / :func:`load_torch_facodec` map the released
 ``ns3_facodec_{encoder,decoder}.bin`` state dicts (upstream ``ns3_codec``
 naming) onto that tree as numpy arrays; ``bridge.facodec_from_params`` then
-loads it and checks every leaf and shape.  The VQ training losses and
-``grad_reverse`` are training code and are not part of this port yet.
+loads it and checks every leaf and shape.
+
+Training (``train/train_codec.py``): ``FACodec.forward(wav, losses)`` gives
+(recon, ids, spk) and appends each quantizer's VQ loss (codebook term plus
+0.25 x commitment term) to the list ``losses``, where the JAX package sows
+them; the quantizers pass the gradient straight through to the encoder.
+:func:`grad_reverse` is the gradient-reversal layer of the upstream
+adversarial heads, which neither package builds.
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +35,21 @@ import torch.nn.functional as F
 
 from mamba_tts_torch.config import CodecConfig
 from mamba_tts_torch.models.layers import Conv, Dense, LayerNorm, normal_init
+
+
+class _GradReverse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return -g
+
+
+def grad_reverse(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward, negated gradient backward (GRL)."""
+    return _GradReverse.apply(x)
 
 
 class Snake(nn.Module):
@@ -174,8 +195,9 @@ def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 class VectorQuantizer(nn.Module):
-    """1x1 in_proj to codebook_dim -> cosine nearest code -> codebook row ->
-    1x1 out_proj back to latent_dim.  Channels-last (B, T, D)."""
+    """1x1 in_proj to codebook_dim -> cosine nearest code -> codebook row,
+    passed straight through -> 1x1 out_proj back to latent_dim.
+    Channels-last (B, T, D)."""
 
     def __init__(self, codebook_size: int, codebook_dim: int, latent_dim: int):
         super().__init__()
@@ -186,14 +208,22 @@ class VectorQuantizer(nn.Module):
     def init_weights(self, g: torch.Generator) -> None:
         normal_init(self.codebook, 1.0, g)
 
-    def forward(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, z: torch.Tensor, losses: Optional[List[torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(quantized latent, ids (B, T)); appends the VQ loss to ``losses``."""
         down = self.in_proj(z)
         e = _l2_normalize(down.to(torch.float32))
         cbn = _l2_normalize(self.codebook)
         ids = torch.argmax(torch.matmul(e, cbn.T), dim=-1)  # (B, T)
         quant_raw = self.codebook[ids].to(down.dtype)
-        # the straight-through form's forward value, rounded as the JAX graph rounds it
-        return self.out_proj(down + (quant_raw - down)), ids
+        if losses is not None:
+            # the codebook term pulls codes to encodings, the commitment term the reverse
+            codebook_loss = ((quant_raw - down.detach()) ** 2).mean()
+            commit_loss = ((down - quant_raw.detach()) ** 2).mean()
+            losses.append(codebook_loss + 0.25 * commit_loss)
+        # straight through: the code's value, the encoder's gradient (and the
+        # JAX graph's rounding of the sum)
+        return self.out_proj(down + (quant_raw - down).detach()), ids
 
     def lookup(self, ids: torch.Tensor) -> torch.Tensor:
         return self.codebook[ids] @ self.out_proj.weight.T + self.out_proj.bias
@@ -211,10 +241,11 @@ class ResidualVQ(nn.Module):
     def _vqs(self):
         return [getattr(self, f"vq_{i}") for i in range(self.num_q)]
 
-    def forward(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, z: torch.Tensor, losses: Optional[List[torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         residual, total, ids = z, torch.zeros_like(z), []
         for vq in self._vqs():
-            q, i = vq(residual)
+            q, i = vq(residual, losses)
             residual = residual - q
             total = total + q
             ids.append(i)
@@ -293,7 +324,8 @@ class TimbreExtractor(nn.Module):
 
 
 class FACodec(nn.Module):
-    """encode(wav) -> (ids (num_q, B, T_f), spk); decode(ids, spk) -> wave."""
+    """encode(wav) -> (ids (num_q, B, T_f), spk); decode(ids, spk) -> wave;
+    forward(wav, losses) -> (recon, ids, spk) for training."""
 
     def __init__(self, cfg: CodecConfig):
         super().__init__()
@@ -305,12 +337,12 @@ class FACodec(nn.Module):
         self.vq_residual = ResidualVQ(c.vq_num_q_r, c.codebook_size, c.codebook_dim, c.latent_dim)
         self.decoder = CodecDecoder(c)
 
-    def _factorize(self, wav):
+    def _factorize(self, wav, losses: Optional[List[torch.Tensor]] = None):
         h = self.encoder(wav).transpose(1, 2)  # (B, T_f, D)
         spk = self.timbre(h)
-        qp, idp = self.vq_prosody(h)
-        qc, idc = self.vq_content(h - qp)
-        qr, idr = self.vq_residual(h - qp - qc)
+        qp, idp = self.vq_prosody(h, losses)
+        qc, idc = self.vq_content(h - qp, losses)
+        qr, idr = self.vq_residual(h - qp - qc, losses)
         return torch.cat([idp, idr, idc], dim=0), qp + qc + qr, spk
 
     def encode(self, wav: torch.Tensor):
@@ -328,6 +360,12 @@ class FACodec(nn.Module):
 
     def decode(self, vq_ids: torch.Tensor, spk: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.decoder(self.latents_from_ids(vq_ids), spk)
+
+    def forward(self, wav: torch.Tensor, losses: Optional[List[torch.Tensor]] = None):
+        """(recon wave, ids, spk), as the JAX ``__call__``; each quantizer's VQ
+        loss is appended to ``losses`` (5 at the default config)."""
+        ids, quantized, spk = self._factorize(wav, losses)
+        return self.decoder(quantized, spk), ids, spk
 
 
 # --------------------------------------------------------------------------

@@ -74,6 +74,30 @@ class Conv(nn.Conv1d):
         nn.init.zeros_(self.bias)
 
 
+class Conv2d(nn.Conv2d):
+    """2-D ``nn.Conv`` with Flax's ``"SAME"`` padding over channels-first
+    (B, C, H, W) input.  At stride s an axis of size n pads
+    ``max((ceil(n / s) - 1) * s + k - n, 0)`` in all, ``total // 2`` on the
+    low side (``torch.nn.Conv2d(padding="same")`` refuses stride > 1).  The
+    Flax kernel (kh, kw, in, out) is ``weight`` (out, in, kh, kw)."""
+
+    def __init__(self, d_in: int, d_out: int, kernel: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1)):
+        super().__init__(d_in, d_out, kernel, stride=stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = []
+        for n, k, s in reversed(list(zip(x.shape[2:], self.kernel_size, self.stride))):
+            total = max((-(-n // s) - 1) * s + k - n, 0)
+            pads += [total // 2, total - total // 2]
+        return F.conv2d(F.pad(x, pads), self.weight, self.bias, self.stride)
+
+    def init_weights(self, g: torch.Generator) -> None:
+        kh, kw = self.kernel_size
+        normal_init(self.weight, 1.0 / math.sqrt(self.in_channels * kh * kw), g)
+        nn.init.zeros_(self.bias)
+
+
 class Embed(nn.Embedding):
     """``nn.Embed``: a row gather from the table cast to ``dtype``."""
 

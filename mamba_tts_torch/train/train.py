@@ -9,13 +9,21 @@ the plain path) in place of the JAX package's device selection:
     python -m mamba_tts_torch.train.train --synthetic --device cpu \\
         --config_json tests/smoke_config.json --max_steps 2
 
+Data comes from the raw CSV and tar through the front-ends
+(``train/pipeline.py`` ``BatchPreparer``: G2P, BERT and FACodec in every
+step), read by ``dataset.batches`` or, with ``--loader grain``, by the
+worker-backed loader (``data/grain_pipeline.py``, ``--grain_workers``); or,
+with ``--preprocessed_dir``, from a directory that ``data/preprocess.py`` or
+``data/preprocess_parallel.py`` of either package wrote (``OfflineDataset``),
+with no front-end work in the loop:
+
+    python -m mamba_tts_torch.train.train --preprocessed_dir prep --max_steps 4
+
 On the card every decoder layer's selective scan and long-query
 cross-attention run through the Hopper kernels (``ops/pallas_scan.py``,
-``ops/flash_attention.py``), forward and backward.  Paths of the JAX CLI that
-are not ported raise ``NotImplementedError`` naming their ROADMAP item:
-``--mesh`` (queue 1 item 7, parallelism), ``--preprocessed_dir`` and
-``--loader grain`` (item 4, offline-preprocessed data and the grain-style
-data loader).
+``ops/flash_attention.py``), forward and backward.  ``--mesh`` is not ported
+and raises ``NotImplementedError`` naming its ROADMAP item (queue 1 item 7,
+parallelism).
 """
 from __future__ import annotations
 
@@ -126,7 +134,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     parser.add_argument("--synthetic", action="store_true",
                         help="run on a generated synthetic dataset (smoke test)")
     parser.add_argument("--preprocessed_dir", type=str, default=None,
-                        help="offline-preprocessed data (not ported: raises)")
+                        help="train from an offline-preprocessed directory "
+                             "(data/preprocess.py output): no G2P/BERT/codec work in the loop")
     parser.add_argument("--config_json", type=str, default=None)
     parser.add_argument("--bert_vocab", type=str, default=None,
                         help="path to a real BERT vocab.txt for the style-text encoder; "
@@ -135,8 +144,10 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
                         help="mesh shape as 'data,model' (not ported: raises)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--loader", choices=["batches", "grain"], default="batches",
-                        help="input pipeline: dataset.batches (grain is not ported: raises)")
-    parser.add_argument("--grain_workers", type=int, default=0)
+                        help="online-path input pipeline: plain dataset.batches or the "
+                             "worker-backed loader (data/grain_pipeline.py)")
+    parser.add_argument("--grain_workers", type=int, default=0,
+                        help="loader worker processes (0 = in-process)")
     parser.add_argument("--log_file", type=str, default=None,
                         help="append per-step JSON metric lines to this file")
     parser.add_argument("--tensorboard_dir", type=str, default=None)
@@ -148,10 +159,6 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
 
     if args.mesh:
         raise _not_ported("--mesh (dp/tp parallelism)", "item 7")
-    if args.preprocessed_dir:
-        raise _not_ported("--preprocessed_dir (offline-preprocessed data)", "item 4")
-    if args.loader == "grain":
-        raise _not_ported("--loader grain (the grain-style data loader)", "item 4")
     device = resolve_device(args.device)
 
     cfg = config_lib.from_json(open(args.config_json).read()) if args.config_json else TTSConfig()
@@ -160,25 +167,48 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     if args.bert_vocab:
         cfg = config_lib.override(cfg, "style_encoder.bert_vocab", args.bert_vocab)
 
-    from mamba_tts_torch.data.dataset import VccmTTSDataset, make_synthetic_dataset
-    from mamba_tts_torch.train.pipeline import BatchPreparer
     from mamba_tts_torch.utils.metrics import MetricsLogger
     from mamba_tts_torch.utils.profiling import StepTimer, trace
 
     tmp = None
     try:
-        if args.synthetic:
-            tmp = tempfile.mkdtemp(prefix="mtts_synth_")
-            csv_path, audio_root = make_synthetic_dataset(tmp, n_items=max(8, args.batch_size * 2))
-        else:
-            csv_path, audio_root = args.csv_path, args.audio_root
-        dataset = VccmTTSDataset(csv_path, audio_root, cfg.data.sample_rate, seed=args.seed)
-        print(f"dataset: {len(dataset)} items ({dataset.skipped} skipped)")
-        preparer = BatchPreparer(cfg, device=device)
+        # data: the online path (raw CSV + tar, front-ends in the loop) or
+        # the offline-preprocessed one (ready tensors)
+        if args.preprocessed_dir:
+            from mamba_tts_torch.data.preprocess import OfflineDataset
 
-        def batch_iter(epoch_seed):
-            for inputs, target_wav in dataset.batches(cfg.train.batch_size, seed=epoch_seed):
-                yield preparer(inputs, target_wav)
+            offline = OfflineDataset(args.preprocessed_dir)
+            print(f"offline dataset: {len(offline)} items from {args.preprocessed_dir}")
+
+            def batch_iter(epoch_seed):
+                return offline.batches(cfg.train.batch_size, max_text_len=cfg.data.max_text_len,
+                                       seed=epoch_seed)
+        else:
+            from mamba_tts_torch.data.dataset import VccmTTSDataset, make_synthetic_dataset
+            from mamba_tts_torch.train.pipeline import BatchPreparer
+
+            if args.synthetic:
+                tmp = tempfile.mkdtemp(prefix="mtts_synth_")
+                csv_path, audio_root = make_synthetic_dataset(
+                    tmp, n_items=max(8, args.batch_size * 2))
+            else:
+                csv_path, audio_root = args.csv_path, args.audio_root
+            dataset = VccmTTSDataset(csv_path, audio_root, cfg.data.sample_rate, seed=args.seed)
+            print(f"dataset: {len(dataset)} items ({dataset.skipped} skipped)")
+            preparer = BatchPreparer(cfg, device=device)
+            if args.loader == "grain":
+                from mamba_tts_torch.data.grain_pipeline import make_grain_loader
+
+                def raw_batches(epoch_seed):
+                    return make_grain_loader(dataset, cfg.train.batch_size, seed=epoch_seed,
+                                             worker_count=args.grain_workers)
+            else:
+                def raw_batches(epoch_seed):
+                    return dataset.batches(cfg.train.batch_size, seed=epoch_seed)
+
+            def batch_iter(epoch_seed):
+                for inputs, target_wav in raw_batches(epoch_seed):
+                    yield preparer(inputs, target_wav)
 
         model = build_model(cfg)
         init_params(model, args.seed)
@@ -203,6 +233,7 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
         t_start = time.perf_counter()
         profile_ctx = None
         while step < cfg.train.max_steps:
+            epoch_start = step
             for batch in batch_iter(step):
                 if step >= cfg.train.max_steps:
                     break
@@ -224,6 +255,9 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
                 if step % args.checkpoint_every == 0:
                     state_lib.save_checkpoint(args.checkpoint_dir, train_state)
                     print(f"checkpoint saved at step {step}")
+            if step == epoch_start:
+                raise ValueError(f"an epoch gave no batch of {cfg.train.batch_size}: "
+                                 "the dataset holds fewer items than the batch size")
         if profile_ctx is not None:
             profile_ctx.__exit__(None, None, None)
         if cfg.train.max_steps > 0 and step % args.checkpoint_every != 0:

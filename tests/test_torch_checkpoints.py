@@ -35,6 +35,19 @@ def _voice():
     return (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs six test
+    processes on the machine's cores, and torch's default of a thread per
+    core in each oversubscribes them (six concurrent CPU train steps at the
+    smoke config took minutes each with eight threads, about a second with
+    one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     ck = tmp_path_factory.mktemp("ck")

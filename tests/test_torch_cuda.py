@@ -11,12 +11,16 @@ import torch
 
 from mamba_tts_torch import config as config_lib
 from mamba_tts_torch.config import DecoderConfig, MambaConfig, StylePipelineConfig, TTSConfig
+from mamba_tts_torch.data.dataset import make_synthetic_dataset
+from mamba_tts_torch.data.preprocess_parallel import ParallelDatasetPreprocessor
 from mamba_tts_torch.infer import quant_decode as qd
 from mamba_tts_torch.infer.quant_decode import quantize_decoder_params
 from mamba_tts_torch.infer.synthesize import load_synthesizer
 from mamba_tts_torch.models.attention import CrossAttention
 from mamba_tts_torch.models.decoder import MambaTTSDecoder, decode_step_, greedy_decode, init_carry
-from mamba_tts_torch.models.layers import seed_init
+from mamba_tts_torch.models.discriminator import MultiSTFTDiscriminator
+from mamba_tts_torch.models.facodec import ConvTranspose1dTorch, FACodec
+from mamba_tts_torch.models.layers import Conv, Dense, seed_init
 from mamba_tts_torch.models.mamba import MambaBlock
 from mamba_tts_torch.models.style import StyleConditioningPipeline
 from mamba_tts_torch.models.tts import MambaTTS
@@ -27,6 +31,7 @@ from mamba_tts_torch.ops import pallas_scan as ps
 from mamba_tts_torch.ops import selective_scan as ts
 from mamba_tts_torch.train import state as state_lib
 from mamba_tts_torch.train import train as train_lib
+from mamba_tts_torch.train import train_codec
 
 pytestmark = pytest.mark.cuda
 
@@ -228,6 +233,98 @@ def test_checkpoint_round_trip_on_card(card, tmp_path):
     wav, info = synth.synthesize("hello there", "calm", (0.3 * torch.sin(2 * torch.pi * 220 * t)).numpy(),
                                  frames=64)
     assert wav.shape == (64 * cfg.codec.hop_length,) and bool(np.isfinite(wav).all())
+
+
+class _Recorder(state_lib.Optimizer):
+    """An optimizer that keeps each gradient it is given and moves nothing."""
+
+    def __init__(self):
+        super().__init__(0.0)
+        self.grads = None
+
+    def apply(self, params, grads, opt_state):
+        self.grads = {n: g.detach().float().cpu() for n, g in grads.items()}
+        return opt_state
+
+
+def _tamed_codec(cfg, seed=0):
+    """A seeded FACodec with every kernel halved (the CPU tests'
+    ``tame_codec_params``): at full scale the random codec saturates its
+    tanh head, where rounding differences between two correct graphs grow."""
+    model = seed_init(FACodec(cfg), seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (Conv, Dense, ConvTranspose1dTorch)):
+                m.weight.mul_(0.5)
+    return model
+
+
+@pytest.fixture
+def no_tf32():
+    """cuDNN convolutions in full f32 (PyTorch's default rounds them to
+    TF32), so that the card is held to the CPU's f32 path."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_codec_gan_step_on_card_matches_cpu(card, no_tf32):
+    """One GAN codec step (``make_gan_codec_train_step``) at the smoke
+    config's codec, B = 2, 3,200 samples, on the card against the CPU:
+    every loss within 1e-2 relative and each component's gradient (the
+    codec's five parts, the discriminator) within 5e-2 of its largest
+    magnitude, ``PERF.md``'s training gates."""
+    cfg = config_lib.from_json(open("tests/smoke_config.json").read()).codec
+    wav = 0.3 * torch.randn((2, 3200), generator=torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = _tamed_codec(cfg).to(dev)
+        disc = seed_init(MultiSTFTDiscriminator(((512, 128), (1024, 256))), 1).to(dev)
+        rg, rd = _Recorder(), _Recorder()
+        step = train_codec.make_gan_codec_train_step(model, disc, rg, rd)
+        _, _, metrics = step(state_lib.create_train_state(dict(model.named_parameters()), rg),
+                             state_lib.create_train_state(dict(disc.named_parameters()), rd),
+                             wav.to(dev))
+        grads = {**rg.grads, **{f"disc.{n}": g for n, g in rd.grads.items()}}
+        parts = {}
+        for n, g in grads.items():
+            parts.setdefault(n.split(".")[0], []).append(g.flatten())
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {k: torch.cat(v) for k, v in parts.items()})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    assert all(np.isfinite(v) for v in l_gpu.values())
+    for k, v in l_cpu.items():
+        assert abs(l_gpu[k] - v) <= 1e-2 * abs(v), (k, l_gpu[k], v)
+    assert set(g_cpu) == {"encoder", "timbre", "vq_prosody", "vq_content", "vq_residual",
+                          "decoder", "disc"}
+    for k, v in g_cpu.items():
+        assert float((g_gpu[k] - v).abs().max()) <= 5e-2 * float(v.abs().max()), k
+
+
+def test_parallel_preprocessor_on_card_matches_cpu(card, no_tf32, tmp_path):
+    """``ParallelDatasetPreprocessor`` at the smoke config (spawned G2P
+    workers, then BERT and FACodec on the card in chunks of 4) against the
+    same run on the CPU: the same files and metadata, equal phoneme and codec
+    ids, style and speaker embeddings within 1e-4 of their largest
+    magnitude."""
+    import json
+
+    csv_path, tar_path = make_synthetic_dataset(str(tmp_path / "synth"), n_items=6)
+    cfg = config_lib.from_json(open("tests/smoke_config.json").read())
+    for dev in ("cpu", "cuda"):
+        assert ParallelDatasetPreprocessor(str(tmp_path / dev), [tar_path], cfg=cfg, cpu_workers=2,
+                                           gpu_batch_size=4, device=dev).preprocess(csv_path) == 6
+    names = sorted(p.name for p in (tmp_path / "cpu" / "tensors").iterdir())
+    assert len(names) == 6 * 4 and names == sorted(p.name for p in (tmp_path / "cuda" / "tensors").iterdir())
+    assert json.loads((tmp_path / "cpu" / "metadata.json").read_text()) == \
+        json.loads((tmp_path / "cuda" / "metadata.json").read_text())
+    for name in names:
+        want, got = (np.load(tmp_path / d / "tensors" / name) for d in ("cpu", "cuda"))
+        if name.endswith(("_style.npy", "_spk_emb.npy")):
+            assert float(np.abs(got - want).max()) <= 1e-4 * float(np.abs(want).max()), name
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 def _small_cfg(d=64, H=4):

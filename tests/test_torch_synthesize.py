@@ -39,6 +39,19 @@ LOGIT_TOL = 1e-4
 WAV_TOL = 5e-4  # tests/test_facodec_convert.py bound
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs six test
+    processes on the machine's cores, and torch's default of a thread per
+    core in each oversubscribes them (six concurrent CPU train steps at the
+    smoke config took minutes each with eight threads, about a second with
+    one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
