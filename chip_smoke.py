@@ -156,6 +156,38 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              launched in each); ms a step; data seconds per batch at B=10 of
              ``OfflineDataset.batches``, ``dataset.batches`` + ``BatchPreparer``
              and the worker loader + ``BatchPreparer``.
+18. parallel — two ranks share the card over gloo (NCCL refuses two ranks
+             on one device), spawned by ``mamba_tts_torch/parallel/dryrun.py``;
+             first each of all_reduce, all_gather and broadcast on CUDA
+             tensors.  (a) the time-sharded scan at T=5,120, D=1,024, N=16,
+             B=2 and 8 (f32 u/B/C, so that the limit reads the hand-off, not
+             bf16 rounding) against the one-rank kernel scan: y and h_T
+             within 2e-4, every gradient within 2e-3 of the largest
+             magnitude; pass 1's device kernels (two launches: summary and
+             carry).  (b) the train CLI at its defaults, 2 steps each with
+             --mesh 2,1, --mesh 1,2, and --mesh 1,2 and --mesh 2,1 with
+             decoder.use_sp_scan from --config_json (on 2,1 the scan's time
+             axis is split over the two data ranks, rows gathered first; the
+             scan and flash launches per rank and run); one deterministic
+             full-width step at (2, 1) and (1, 2) on a batch of uneven text
+             and frame lengths against the single-rank step: with the text
+             encoder and duration predictor in f32, every loss and the
+             gradient norm within 5e-4 relative; at the CLI's dtypes (bf16)
+             within BF16_STEP_TOL, beside one rank's steps on each data
+             rank's rows alone, recombined (the rounding of the batch size
+             without any collective).
+             (c) ``load_synthesizer(quant=..., mesh=...)``, megakernel and
+             none, 3 rows at 64 frames with the style pinned to the mixture
+             mean: each rank's rows equal a single run on the same row batch,
+             and each row's tokens agree >= 90% with its teacher-forced
+             rerun at B = 1 (the megakernel; the forward for none); one
+             ``--dp_serving --quant int8`` CLI request.  (d) the checkpoint
+             that --mesh 1,2 wrote, served by ``load_synthesizer
+             (checkpoint_dir=...)`` in this process.  Walls are two ranks
+             sharing one card, not a scaling figure; the launch counts of
+             the parallel paths in (a)-(c) (the comparisons with one rank
+             excluded), summed over the ranks, are each kernel row's
+             ``parallel_launches``.
 14. card vs CPU — 2 layers at full width, one batch, deterministic: losses
              and each component's gradient on the card against the CPU's
              plain path; 10 steps on a fixed batch lower the codec loss.
@@ -1701,10 +1733,10 @@ def phase_style_branch(torch, synth, tmp, steps=5, profiled_steps=2):
         tx = state_lib.make_optimizer(cfg.train.lr, cfg.train.grad_clip_norm)
         seen, apply = {}, tx.apply
 
-        def spy(params, grads, opt_state, seen=seen, apply=apply):
+        def spy(params, grads, opt_state, seen=seen, apply=apply, **kw):
             seen.update({n: bool(torch.any(gr)) for n, gr in grads.items()
                          if n.startswith("style_pipe.")})
-            return apply(params, grads, opt_state)
+            return apply(params, grads, opt_state, **kw)
 
         tx.apply = spy
         runs[branch] = {"step": tr.make_train_step(model, tx, use_nar_branch=branch),
@@ -2194,6 +2226,401 @@ def phase_loader_times(torch, corpus, B=10):
     return row
 
 
+PARALLEL_NOTE = "two ranks sharing one H100 over gloo: not a scaling figure"
+# phase 18b's deterministic step at the CLI's dtypes (bf16): each loss, the
+# gradient norm and each component's against one rank's, relative.  Readings
+# on an H100 at 700 W, two runs alike: at most 6.39e-4 (loss_dur at (2, 1))
+# and 5.39e-4 (the duration predictor's gradient norm), about 3x below the
+# limit.  The witness (one rank's steps on each data rank's rows, recombined)
+# read at most 6.9e-8 from (2, 1).
+BF16_STEP_TOL = 2e-3
+WITNESS_TOL = 1e-6
+
+
+def _counters():
+    """Every kernel wrapper of the kernel table, by row name."""
+    from mamba_tts_torch.ops import decode_megakernel as mk
+    from mamba_tts_torch.ops.int8_matvec import int8_matvec
+
+    return {**_wrappers(), "int8_matvec": int8_matvec, "decode_megakernel": mk._megakernel_call}
+
+
+class _Uncounted:
+    """Launches made to hold a path against its reference: the kernels'
+    counts are put back on exit."""
+
+    def __enter__(self):
+        self.saved = {k: w.launches for k, w in _counters().items()}
+
+    def __exit__(self, *exc):
+        for k, w in _counters().items():
+            w.launches = self.saved[k]
+        return False
+
+
+def _par_sp_scan(torch, rank, T=5120, D=1024, N=16):
+    """Phase 18a in one rank."""
+    import torch.distributed as dist
+
+    from mamba_tts_torch.ops import pallas_scan as ps
+    from mamba_tts_torch.ops.selective_scan import selective_scan
+    from mamba_tts_torch.parallel.mesh import make_mesh
+    from mamba_tts_torch.parallel.sp_scan import sp_selective_scan
+
+    mesh = make_mesh((2,), ("data",), device_type="cuda")
+    rows = []
+    for B in (2, 8):
+        u, delta, A, Bm, Cm, Dsk, _ = _scan_inputs(torch, B, T, D, N, seed=B, with_h0=False)
+        u, Bm, Cm = u.float(), Bm.float(), Cm.float()
+        g = torch.Generator(device="cuda").manual_seed(7)
+        wy = torch.randn(u.shape, generator=g, device="cuda")
+        wh = torch.randn((B, N, D), generator=g, device="cuda")
+
+        def run(fn):
+            ts = [t.detach().clone().requires_grad_(True) for t in (u, delta, A, Bm, Cm, Dsk)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, h = fn(*ts)
+            ((y.float() * wy).sum() + (h * wh).sum()).backward()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, y.detach(), h.detach(), [t.grad for t in ts]
+
+        sp_s, y_s, h_s, g_s = run(lambda *ts: sp_selective_scan(*ts, mesh))
+        with _Uncounted():
+            one_s, y_1, h_1, g_1 = run(lambda *ts: ps.selective_scan_pallas(*ts))
+        errs = {"y": _errs(y_s, y_1), "h_T": _errs(h_s, h_1)}
+        errs.update({f"d{n}": _errs(a, b) for n, a, b in zip(("u", "dt", "A", "B", "C", "D"),
+                                                             g_s, g_1)})
+        row = {"B": B, "T": T, "D": D, "N": N, "rel_errors": {k: e[1] for k, e in errs.items()},
+               "sp_fwd_bwd_s": sp_s, "one_rank_fwd_bwd_s": one_s}
+        for k in ("y", "h_T"):
+            check(errs[k][1] <= 2e-4, f"sp scan B={B} {k}: relative error {errs[k][1]}")
+        for k in ("du", "ddt", "dA", "dB", "dC", "dD"):
+            check(errs[k][1] <= 2e-3, f"sp scan B={B} {k}: relative error {errs[k][1]}")
+        if rank == 0:  # pass 1 alone: this rank's slice, the final state only
+            with _Uncounted():
+                Tl = T // 2
+                sl = [t[:, :Tl].contiguous() for t in (u, delta, Bm, Cm)]
+                args = (sl[0], sl[1], A, sl[2], sl[3], Dsk)
+                row["pass1_kernels"] = kernels_per_call(
+                    torch, lambda: selective_scan(*args, output=False))
+                grad_args = [t.detach().clone().requires_grad_(True) for t in args]
+                row["pass1_kernels_with_grad"] = kernels_per_call(
+                    torch, lambda: selective_scan(*grad_args, output=False))
+                for key in ("pass1_kernels", "pass1_kernels_with_grad"):
+                    names = [r["kernel"] for r in row[key]]
+                    check(len(row[key]) == 2 and all(r["calls"] == 1 for r in row[key])
+                          and any("scan_fwd_summary" in n for n in names)
+                          and any("scan_carry" in n for n in names),
+                          f"sp scan pass 1 ran {row[key]}, not one summary and one carry launch")
+        dist.barrier()
+        rows.append(row)
+        del u, delta, Bm, Cm, y_s, y_1, g_s, g_1
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _par_train(torch, rank, tmp, sp_cfg):
+    """Phase 18b in one rank."""
+    import math
+
+    import numpy as np
+
+    from mamba_tts_torch import config as config_lib
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.parallel.dryrun import train_check
+    from mamba_tts_torch.train import train as tr
+
+    counters = _counters()
+    runs = {}
+    for tag, extra in (("2,1", []), ("1,2", []), ("1,2 sp", ["--config_json", sp_cfg]),
+                       ("2,1 sp", ["--config_json", sp_cfg])):
+        before = {k: w.launches for k, w in counters.items()}
+        t0 = time.perf_counter()
+        out = tr.main(["--synthetic", "--mesh", tag.split()[0], "--max_steps", "2",
+                       "--checkpoint_dir", f"{tmp}/ck_{tag.replace(',', 'x').replace(' ', '_')}",
+                       *extra])
+        losses = [h["loss_total"] for h in out["history"]]
+        check(out["step"] == 2 and all(math.isfinite(v) for v in losses),
+              f"train CLI --mesh {tag}: {out['step']} steps, losses {losses}")
+        runs[tag] = {"wall_s": time.perf_counter() - t0, "ms_per_step": out["ms_per_step"],
+                     "loss_total": losses,
+                     "launches": {k: w.launches - before[k] for k, w in counters.items()}}
+        for k in TRAIN_PATH_KERNELS:
+            check(runs[tag]["launches"][k] > 0, f"train CLI --mesh {tag}: {k} not launched")
+    # one deterministic full-width step on each mesh against one rank's, on
+    # a batch with uneven text and frame lengths (there a mean of per-rank
+    # means is not the global batch's): with the text encoder and duration
+    # predictor in f32, every loss, the gradient norm and each component's
+    # gradient norm within 5e-4; and at the CLI's dtypes, within
+    # BF16_STEP_TOL, beside the witness that reads the rounding of the batch
+    # size alone: one rank's step on each data rank's rows (B = 2),
+    # recombined over the global batch as the ranks do, held to (2, 1)
+    # within WITNESS_TOL
+    f32 = TTSConfig()
+    for key in ("text_encoder.dtype", "duration.dtype"):
+        f32 = config_lib.override(f32, key, "float32")
+    batch, style = _step_batch(np, TTSConfig())
+
+    def small(res):
+        squares = {}
+        for name, g in res["grads"].items():  # by component: decoder, smsd, ...
+            part = name.split(".")[0]
+            squares[part] = squares.get(part, 0.0) + float(np.square(g, dtype=np.float64).sum())
+        return {"losses": res["losses"], "norm": res["norm"],
+                "grad_norms": {k: math.sqrt(v) for k, v in squares.items()}}
+
+    def rel(a, b):
+        return abs(a - b) / abs(b) if b else abs(a - b)
+
+    det = {}
+    with _Uncounted():
+        for dtype, cfg in (("f32_text_and_duration", f32), ("bf16_cli_dtypes", TTSConfig())):
+            step = (config_lib.to_json(cfg), batch, None, 0, "cuda", style)
+            det[dtype] = {f"{a},{b}": small(train_check(*step, mesh_shape=(a, b)))
+                          for a, b in ((2, 1), (1, 2))}
+            if rank == 0:
+                det[dtype]["single"] = small(train_check(*step))
+        if rank == 0:
+            B = len(batch["text_mask"])
+            halves = [small(train_check(config_lib.to_json(TTSConfig()),
+                                        {k: v[r:r + B // 2] for k, v in batch.items()}, None, 0,
+                                        "cuda", {k: v[r:r + B // 2] for k, v in style.items()}))
+                      for r in (0, B // 2)]
+            det["bf16_cli_dtypes"]["one_rank_halves"] = _recombined(TTSConfig(), batch, halves)
+    if rank == 0:
+        for dtype, res in det.items():
+            ref = res["single"]
+            for tag, got in res.items():
+                if "losses" in got:
+                    got["rel_err"] = {k: rel(got["losses"][k], v) for k, v in ref["losses"].items()}
+                    got["rel_err"]["norm"] = rel(got["norm"], ref["norm"])
+                    got["rel_err"].update({f"grad_norm_{k}": rel(got["grad_norms"][k], v)
+                                           for k, v in ref["grad_norms"].items()})
+        halves = det["bf16_cli_dtypes"]["one_rank_halves"]
+        dp = det["bf16_cli_dtypes"]["2,1"]["losses"]
+        halves["rel_err_to_2,1"] = {k: rel(halves[k], v) for k, v in dp.items()}
+        halves["rel_err"] = {k: rel(halves[k], v)
+                             for k, v in det["bf16_cli_dtypes"]["single"]["losses"].items()}
+        emit({"phase": "parallel_deterministic_step", "B": len(batch["text_mask"]),
+              "L": batch["text_mask"].shape[1], "S": batch["target_codec"].shape[1], **det})
+        for dtype, tol in (("f32_text_and_duration", 5e-4), ("bf16_cli_dtypes", BF16_STEP_TOL)):
+            for tag in ("2,1", "1,2"):
+                for k, err in det[dtype][tag]["rel_err"].items():
+                    check(err <= tol, f"{dtype} mesh {tag} step {k}: relative error {err} > {tol}")
+        for k, err in halves["rel_err_to_2,1"].items():
+            check(err <= WITNESS_TOL, f"bf16 mesh 2,1 step {k}: {err} from one rank's steps on "
+                  f"each rank's rows, recombined (> {WITNESS_TOL}): not the batch size's rounding")
+    return {"cli": runs, "deterministic_steps": det}
+
+
+def _step_batch(np, cfg, B=4, L=32, S=128):
+    """A deterministic step's global batch at full width and its z_style
+    draw: row 1's text ends at L/2 and row 3's target at 3S/4."""
+    Q, V = cfg.decoder.num_quantizers, cfg.decoder.vocab_size_audio
+    rng = np.random.default_rng(0)
+    text_mask = np.ones((B, L), bool)
+    text_mask[1, L // 2:] = False
+    target = rng.integers(2, V, (B, S, Q)).astype(np.int32)
+    target[3, 3 * S // 4:] = cfg.decoder.pad_id
+    frames = np.full((B,), S, np.int32)
+    frames[3] = 3 * S // 4
+    batch = {"phoneme_ids": (rng.integers(1, cfg.text_encoder.vocab_size, (B, L)) * text_mask
+                             ).astype(np.int32),
+             "text_mask": text_mask,
+             "style_bert": rng.standard_normal((B, cfg.smsd.bert_dim)).astype(np.float32),
+             "spk_embs": rng.standard_normal((B, cfg.smsd.style_dim)).astype(np.float32),
+             "target_codec": target, "target_frames": frames,
+             "voice_codec": rng.integers(2, V, (B, S, Q)).astype(np.int32)}
+    style = {"k": rng.integers(0, cfg.smsd.num_mixtures, (B,)),
+             "eps": rng.standard_normal((B, cfg.smsd.style_dim)).astype(np.float32)}
+    return batch, style
+
+
+def _recombined(cfg, batch, halves):
+    """One-rank losses of consecutive row blocks -> the global batch's: each
+    loss's numerator and denominator summed over the blocks, as the
+    data-parallel losses sum them over the ranks."""
+    rows = len(batch["text_mask"]) // len(halves)
+    dens = [{"loss_codec": float((batch["target_codec"][r:r + rows] != cfg.decoder.pad_id).sum()),
+             "loss_dur": float(batch["text_mask"][r:r + rows].sum()), "loss_smsd": float(rows)}
+            for r in range(0, len(batch["text_mask"]), rows)]
+    out = {k: sum(h["losses"][k] * d[k] for h, d in zip(halves, dens)) / sum(d[k] for d in dens)
+           for k in dens[0]}
+    tr = cfg.train
+    out["loss_total"] = (tr.w_codec * out["loss_codec"] + tr.w_dur * out["loss_dur"]
+                         + tr.w_smsd * out["loss_smsd"])
+    return out
+
+
+def _forced_agreement(torch, synth, rows, tokens, frames):
+    """Per row, alone (B = 1), teacher-forced on the row's decoded tokens:
+    the megakernel itself (``quant="megakernel"``, at the dtypes its planner
+    picks for B = 1) or the forward (``quant="none"``); the share of steps
+    whose argmax (specials masked) equals the token.  A free-running greedy
+    decode at another batch size is no reference: one near-tied flip at
+    random weights changes every later token."""
+    from mamba_tts_torch.infer.synthesize import _MEGAKERNEL_UNROLL, _megakernel_dtypes
+    from mamba_tts_torch.ops.decode_megakernel import megakernel_greedy_decode
+
+    model, dc = synth.model, synth.decoder.cfg
+    ids, mask, style, vc = rows
+    Q = dc.num_quantizers
+    quant_ids = torch.arange(Q, device="cuda").repeat_interleave(frames)[None]
+    pos_ids = torch.arange(frames, device="cuda").repeat(Q)[None]
+    agree = []
+    with torch.no_grad():
+        for i in range(len(tokens)):
+            th = model.encode_text(ids[i:i + 1], mask[i:i + 1])
+            z = model.sample_style(style[i:i + 1])
+            rh, rm = model.embed_voice(vc[i:i + 1])
+            tok = torch.as_tensor(tokens[i:i + 1], device="cuda")
+            inp = torch.cat([torch.full_like(tok[:, :1], dc.bos_id), tok[:, :-1]], dim=1)
+            if synth.quant == "megakernel":  # forced tokens are each step's input
+                wd, kvd = _megakernel_dtypes(dc, 1, rh.shape[1] + th.shape[1],
+                                             unroll_steps=_MEGAKERNEL_UNROLL)
+                chosen = megakernel_greedy_decode(
+                    synth.decoder, synth._qparams, th, z, frames, text_mask=mask[i:i + 1],
+                    ref_hidden=rh, ref_mask=rm, forced_tokens=inp[0], weight_dtype=wd,
+                    kv_dtype=kvd, weight_plan=synth._weight_plans[wd]).tokens[0]
+            else:
+                logits = synth.decoder(inp, th, z, mask[i:i + 1], rh, rm, quant_ids=quant_ids,
+                                       pos_ids=pos_ids)[0].float()
+                logits[:, :dc.num_special_tokens] = -1e9
+                chosen = logits.argmax(-1)
+            agree.append(float((chosen == tok[0]).float().mean()))
+    return agree
+
+
+def _par_serving(torch, rank, tmp, voice_path, texts_path, frames=64):
+    """Phase 18c in one rank."""
+    import copy as copy_lib
+
+    import numpy as np
+
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.infer import synthesize as syn
+    from mamba_tts_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((2,), ("data",), device_type="cuda")
+    voice = _voice(1.0)
+    texts = [ln.strip() for ln in open(texts_path)]
+    out = {}
+    for quant in ("megakernel", "none"):
+        synth = syn.load_synthesizer(TTSConfig(), quant=quant, mesh=mesh)
+        model = synth.model
+
+        def sample_style(style_bert, generator=None, model=model):
+            pi, mu, _ = model.smsd(style_bert)
+            return mu[torch.arange(mu.shape[0]), pi.argmax(-1)]
+
+        model.sample_style = sample_style
+        ids, _, mask = synth.frontend.encode_batch(texts, pad_to=synth.cfg.data.max_text_len)
+        ids, mask, vc = synth._tensors(ids, mask, synth._encode_voice([voice] * len(texts)))
+        rows = (ids, mask, synth.style_encoder.embed(STYLES[:len(texts)]), vc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = synth._decode_rows(rows, frames, 0.0, synth._generator(0))
+        wall = time.perf_counter() - t0
+        row = {"rows": len(texts), "frames": frames, "decode_rows_wall_s": wall}
+        if rank == 0:
+            with _Uncounted():
+                single = copy_lib.copy(synth)
+                single.mesh = None
+                gen = single._generator(0)
+                same_batch = [single._decode_rows(tuple(a[0:2] for a in rows), frames, 0.0, gen),
+                              single._decode_rows(tuple(a[[2, 2]] for a in rows), frames, 0.0, gen)[:1]]
+                check(np.array_equal(np.concatenate(same_batch), tokens),
+                      f"dp serving {quant}: a rank's rows differ from one run on the same batch")
+                agree = _forced_agreement(torch, synth, rows, tokens, frames)
+                row["per_row_teacher_forced_agreement"] = agree
+                check(min(agree) >= 0.9, f"dp serving {quant}: per-row agreement {agree}")
+        out[quant] = row
+        del synth, model
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    syn.main(["--texts_file", texts_path, "--voice_wav", voice_path, "--dp_serving",
+              "--frames", "32", "--quant", "int8", "--output", f"{tmp}/dp.wav"])
+    out["cli_wall_s"] = time.perf_counter() - t0
+    if rank == 0:
+        check(all(pathlib.Path(f"{tmp}/dp_{i:03d}.wav").is_file() for i in range(len(texts))),
+              "--dp_serving wrote no wav per row")
+    return out
+
+
+def _parallel_rank(tmp, voice_path, texts_path, sp_cfg):
+    """Phase 18 (a-c) in one of the two ranks that share the card."""
+    import torch
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(x)
+    parts = [torch.empty_like(x) for _ in range(2)]
+    dist.all_gather(parts, x)
+    y = torch.full((4,), float(rank), device="cuda")
+    dist.broadcast(y, src=1)
+    check(float(x[0]) == 3.0 and all(float(p[0]) == 3.0 for p in parts) and float(y[0]) == 1.0,
+          "gloo collectives on CUDA tensors gave wrong values")
+    walls = {}
+    counters = _counters()
+    for w in counters.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    sp = _par_sp_scan(torch, rank)
+    walls["a_sp_scan_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = _par_train(torch, rank, tmp, sp_cfg)
+    walls["b_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serving = _par_serving(torch, rank, tmp, voice_path, texts_path)
+    walls["c_serving_s"] = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counters.items()}
+    return {"rank": rank, "gloo_cuda_collectives": ["all_reduce", "all_gather", "broadcast"],
+            "sp_scan": sp, "train": train, "serving": serving, "walls": walls,
+            "launches": launches,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_parallel(torch, tmp, frames=64):
+    """Phase 18: see the module docstring."""
+    import numpy as np
+
+    from mamba_tts_torch import config as config_lib
+    from mamba_tts_torch.audio.wavio import write_wav
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.infer.synthesize import load_synthesizer
+    from mamba_tts_torch.parallel.dryrun import spawn
+
+    voice_path, texts_path = str(tmp / "par_voice.wav"), str(tmp / "par_texts.txt")
+    write_wav(voice_path, _voice(1.0), 16000)
+    pathlib.Path(texts_path).write_text("\n".join(TEXTS[:3]) + "\n")
+    sp_cfg = str(tmp / "sp_config.json")
+    pathlib.Path(sp_cfg).write_text(config_lib.to_json(
+        config_lib.override(TTSConfig(), "decoder.use_sp_scan", True)))
+    t0 = time.perf_counter()
+    ranks = spawn(2, _parallel_rank, str(tmp), voice_path, texts_path, sp_cfg, device="cuda",
+                  timeout=600)
+    world_s = time.perf_counter() - t0
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    emit({"phase": "parallel", "note": PARALLEL_NOTE, "card": nvidia_smi_line(),
+          "world_wall_s": world_s, "launches": launches, "ranks": ranks})
+    # (d) the checkpoint written under --mesh 1,2, served by one rank
+    t0 = time.perf_counter()
+    synth = load_synthesizer(checkpoint_dir=str(tmp / "ck_1x2"))
+    wav, info = synth.synthesize(TEXT, STYLE, _voice(1.0), frames=frames)
+    check(wav.shape == (frames * 200,) and bool(np.isfinite(wav).all()),
+          f"serving the --mesh 1,2 checkpoint: waveform {wav.shape}")
+    emit({"phase": "parallel_checkpoint_serving", "seconds": time.perf_counter() - t0,
+          "frames": frames, "wall_seconds": info["wall_seconds"]})
+    for k in ("selective_scan_fwd_ckpt", "selective_scan_bwd", "flash_attention_fwd",
+              "flash_attention_bwd", "decode_megakernel", "int8_matvec"):
+        check(launches[k] > 0, f"phase 18: {k} was not launched on the parallel paths")
+    del synth
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -2261,6 +2688,8 @@ def main():
         phase_loader_times(torch, corpus)
     torch.cuda.empty_cache()
     phase_card_vs_cpu(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        par_launches = phase_parallel(torch, pathlib.Path(tmp))
 
     b1 = [r for r in rows if r["B"] == 1]
 
@@ -2277,6 +2706,7 @@ def main():
         "bias_l2_hot_ms": mean("kernel_bias_l2_hot_ms"),
         "library_l2_hot_ms": mean("library_l2_hot_ms"),
         "trained_weights_launches": ck_launches["int8_matvec"],
+        "parallel_launches": par_launches["int8_matvec"],
     }, {
         "name": "decode_megakernel", "route": "cuda",
         "source": "mamba_tts_torch/ops/csrc/decode_megakernel.cu",
@@ -2296,10 +2726,12 @@ def main():
         "grid_barriers_per_step": mk_one["grid_barriers_per_step"],
         "trained_weights_launches": ck_launches["decode_megakernel"],
         "released_weights_launches": released_launches,
+        "parallel_launches": par_launches["decode_megakernel"],
     }] + [{
         "name": k, "route": "cuda", "source": TRAIN_SOURCES[k][0], "replaces": TRAIN_SOURCES[k][1],
         "launches": train_launches[k], **train_rows[k],
         "preprocessed_launches": prep_launches[k], "grain_loader_launches": loader_launches[k],
+        "parallel_launches": par_launches[k],
     } for k in TRAIN_KERNELS], "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,10 @@ seven public flags and adds checkpoint/metrics flags the reference lacks.
 
 The PyTorch port keeps its own copy of this module so that one config JSON
 loads in both packages.  Fields that select mechanisms of the JAX package
-(``use_pallas``, ``scan_chunk``, ``use_sp_scan``, ``sp_axis``,
-``use_native_loader``) are kept for that reason and not read by the port;
-``remat`` is (``torch.utils.checkpoint`` per decoder layer).
+(``use_pallas``, ``scan_chunk``, ``use_native_loader``) are kept for that
+reason and not read by the port; ``remat`` is (``torch.utils.checkpoint``
+per decoder layer), and so are ``use_sp_scan`` and ``sp_axis``
+(``parallel/sp_scan.py``).
 """
 from __future__ import annotations
 

@@ -6,7 +6,11 @@ and the JAX package's padded batch collation (:func:`_collate`).
 
 grain's shuffle order is grain's own and is not reproduced: here each epoch
 is a ``torch.randperm`` drawn from one ``torch.Generator`` seeded with
-``seed`` (:func:`epoch_orders`).  Workers are spawned, not forked, so that
+``seed`` (:func:`epoch_orders`).  As grain's ``IndexSampler(num_epochs=...)``
+with ``Batch(drop_remainder=True)`` does, one sampler runs over all epochs
+and batches are cut across the epoch boundary, so only the stream's last
+partial batch is dropped (none without an end); the ``DataLoader`` and its
+workers are built once per call.  Workers are spawned, not forked, so that
 none inherits a CUDA context or a thread of the training process; each reads
 the archive through its own handle (``VccmTTSDataset`` opens one per
 process).
@@ -61,6 +65,20 @@ def epoch_orders(n: int, seed: int = 0, shuffle: bool = True) -> Iterator[List[i
         yield torch.randperm(n, generator=g).tolist() if shuffle else list(range(n))
 
 
+class _EpochStream(torch.utils.data.Sampler):
+    """The item indices of ``num_epochs`` epochs (``None``: no end), one
+    epoch's order after the other."""
+
+    def __init__(self, n: int, seed: int, shuffle: bool, num_epochs: Optional[int]):
+        self.n, self.seed, self.shuffle, self.num_epochs = n, seed, shuffle, num_epochs
+
+    def __iter__(self):
+        orders = epoch_orders(self.n, self.seed, self.shuffle)
+        epochs = itertools.count() if self.num_epochs is None else range(self.num_epochs)
+        for _ in epochs:
+            yield from next(orders)
+
+
 def make_grain_loader(
     dataset: VccmTTSDataset,
     batch_size: int,
@@ -70,17 +88,15 @@ def make_grain_loader(
     worker_count: int = 0,
 ) -> Iterator[Tuple[dict, np.ndarray]]:
     """Collated batches ``({'voice_waveform', 'text_prompt',
-    'style_prompt'}, target (B, T))``, ``num_epochs`` passes (``None``: no
-    end), the last incomplete batch of each dropped.  ``worker_count > 0``
-    moves tar extraction and WAV decoding into that many worker processes
-    (0: in this process)."""
+    'style_prompt'}, target (B, T))`` over ``num_epochs`` passes (``None``:
+    no end), batched across the epoch boundaries; the stream's last
+    incomplete batch is dropped.  ``worker_count > 0`` moves tar extraction
+    and WAV decoding into that many worker processes (0: in this process),
+    spawned once for the whole stream."""
     source = _Source(dataset)
-    orders = epoch_orders(len(source), seed, shuffle)
-    epochs = itertools.count() if num_epochs is None else range(num_epochs)
-    for _ in epochs:
-        loader = DataLoader(
-            source, batch_size=batch_size, sampler=next(orders), drop_last=True,
-            collate_fn=_collate, num_workers=worker_count,
-            multiprocessing_context="spawn" if worker_count > 0 else None,
-        )
-        yield from loader
+    yield from DataLoader(
+        source, batch_size=batch_size,
+        sampler=_EpochStream(len(source), seed, shuffle, num_epochs), drop_last=True,
+        collate_fn=_collate, num_workers=worker_count,
+        multiprocessing_context="spawn" if worker_count > 0 else None,
+    )

@@ -17,8 +17,20 @@ weight/K-V dtypes chosen per batch and memory length by its planner; a
 batch the planner finds no fit for takes the int8 step decode).
 :func:`load_synthesizer` serves the newest checkpoint of the port's train
 CLI (configured by the ``config.json`` beside it) and the released FACodec
-state dicts from local paths.  Mesh-parallel serving is not ported yet and
-raises ``NotImplementedError``.
+state dicts from local paths.
+
+``mesh`` (a ``DeviceMesh`` with a "data" axis, ``parallel/mesh.py``) serves
+batches data-parallel, SPMD: every rank calls with the same requests and
+holds the same weights; ``synthesize_batch`` pads the rows to a multiple of
+the axis by repeating the last row, each rank decodes its contiguous rows
+(the megakernel's fit and chunk per rank), the token rows are all-gathered
+and trimmed, and every rank finishes as one device does.  Sampled decodes
+and the style draw take one stream per rank (the same distribution as the
+single-device path, other numbers).  A single utterance stays on one rank's
+path:
+
+    torchrun --nproc_per_node 2 -m mamba_tts_torch.infer.synthesize \
+        --texts_file texts.txt --voice_wav prompt.wav --dp_serving
 
 Runs on the CUDA card unless ``device="cpu"`` is passed; with no card it
 raises rather than falling back.
@@ -53,15 +65,16 @@ from mamba_tts_torch.ops.decode_megakernel import (
     megakernel_greedy_decode,
     megakernel_max_batch,
 )
+from mamba_tts_torch.parallel import comm
+from mamba_tts_torch.parallel.distributed import rank_mesh
+from mamba_tts_torch.parallel.mesh import axis_group, axis_rank, axis_size
 from mamba_tts_torch.text.processor import PhonemeFrontend
 from mamba_tts_torch.train import state as state_lib
 
 # Steps per grid step of the TPU megakernel; the Hopper kernel loops over the
 # steps itself, so the value is only validated and results do not depend on it.
 _MEGAKERNEL_UNROLL = 1
-_MESH_TODO = (
-    "mesh-parallel serving (mesh= / --dp_serving) is not ported yet "
-    "(ROADMAP queue 1, parallelism item)")
+_RANK_MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant: (request seed, rank) -> a rank's stream
 
 
 def _run_chunked(run, arrays, generator, chunk):
@@ -101,9 +114,8 @@ class Synthesizer:
     ):
         if quant not in ("none", "int8", "int8_kv", "megakernel"):
             raise ValueError(f"quant must be none|int8|int8_kv|megakernel, got {quant!r}")
-        if mesh is not None:
-            raise NotImplementedError(_MESH_TODO)
         self.cfg = cfg
+        self.mesh = mesh
         self.quant = quant
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -218,7 +230,10 @@ class Synthesizer:
         The megakernel takes at most ``megakernel_max_batch`` rows at this
         memory length (voice-codec tokens + text tokens) per call, so a
         bigger batch runs as consecutive chunks; 0 runs the batch whole, and
-        ``decode_tokens`` then takes the int8 step decode by the same fit."""
+        ``decode_tokens`` then takes the int8 step decode by the same fit.
+        On a mesh, a batch of more than one row is split over the "data"
+        ranks (padded by repeating its last row), each rank decodes its
+        contiguous rows with its own stream, and the rows are gathered."""
         chunk = None
         if self.quant == "megakernel":
             Q = self.cfg.decoder.num_quantizers
@@ -230,7 +245,20 @@ class Synthesizer:
         def run(ids, mask, style, voice, gen):
             return self.decode_tokens(ids, mask, style, voice, frames, temperature, gen)
 
-        return _run_chunked(run, arrays, generator, chunk).cpu().numpy()
+        B, n = arrays[0].shape[0], axis_size(self.mesh, "data")
+        if B == 1 or n == 1:
+            return _run_chunked(run, arrays, generator, chunk).cpu().numpy()
+        per = -(-B // n)
+        arrays = [torch.cat([a, a[-1:].expand(n * per - B, *a.shape[1:])]) for a in arrays]
+        rank = axis_rank(self.mesh, "data")
+        mine = [a[rank * per:(rank + 1) * per] for a in arrays]
+        # one draw from the request's stream (the same on every rank) seeds
+        # this rank's stream
+        base = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=generator.device))
+        gen = self._generator((base + rank * _RANK_MIX) % 2 ** 63)
+        tokens = _run_chunked(run, mine, gen, chunk)
+        return comm.gather(tokens, 0, axis_group(self.mesh, "data"))[:B].cpu().numpy()
 
     def synthesize(self, text: str, style_prompt: str, voice_wav, frames: Optional[int] = None,
                    temperature: float = 0.0, seed: int = 0) -> Tuple[np.ndarray, dict]:
@@ -349,9 +377,8 @@ def load_synthesizer(cfg: Optional[TTSConfig] = None, checkpoint_dir: Optional[s
     beside the checkpoints.  A checkpoint whose keys or shapes differ from
     the model raises.  ``codec_ckpts`` = (encoder, decoder) local paths of
     the released FACodec state dicts; without them FACodec, like BERT, is at
-    a seeded init (seed 0)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    a seeded init (seed 0).  ``mesh``: serve batches data-parallel over
+    its "data" axis (every rank loads the same weights)."""
     if cfg is None:
         cfg = checkpoint_config(checkpoint_dir) or TTSConfig()
     dev = resolve_device(device)
@@ -366,7 +393,7 @@ def load_synthesizer(cfg: Optional[TTSConfig] = None, checkpoint_dir: Optional[s
     if codec_ckpts:
         tokenizer = FACodecTokenizer(cfg.codec, device=dev, torch_encoder_ckpt=codec_ckpts[0],
                                      torch_decoder_ckpt=codec_ckpts[1])
-    return Synthesizer(cfg, model, tokenizer=tokenizer, quant=quant, device=dev)
+    return Synthesizer(cfg, model, tokenizer=tokenizer, quant=quant, mesh=mesh, device=dev)
 
 
 def main(argv=None):
@@ -394,7 +421,8 @@ def main(argv=None):
     parser.add_argument("--variable_length", action="store_true",
                         help="batch mode: group rows by their own 64-frame bucket")
     parser.add_argument("--dp_serving", action="store_true",
-                        help="mesh-parallel serving (not ported yet; raises)")
+                        help="shard batch rows over every rank of the process group "
+                             "(torchrun; one process a rank) on a 'data' mesh")
     parser.add_argument("--bert_vocab", type=str, default=None,
                         help="path to a real BERT vocab.txt for the style-text encoder")
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
@@ -402,8 +430,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.text is None and not args.texts_file:
         parser.error("one of --text or --texts_file is required")
-    if args.dp_serving:
-        raise NotImplementedError(_MESH_TODO)
 
     from mamba_tts_torch.audio.wavio import write_wav
 
@@ -413,23 +439,30 @@ def main(argv=None):
         cfg = config_lib.override(cfg, "style_encoder.bert_vocab", args.bert_vocab)
     ckpts = ((args.facodec_encoder_ckpt, args.facodec_decoder_ckpt)
              if args.facodec_encoder_ckpt else None)
+    mesh = rank_mesh(None, ("data",), resolve_device(args.device)) if args.dp_serving else None
+    main_rank = mesh is None or mesh.get_rank() == 0
     synth = load_synthesizer(cfg, args.checkpoint_dir, args.seed, codec_ckpts=ckpts,
-                             quant=args.quant, device=args.device)
+                             quant=args.quant, mesh=mesh, device=args.device)
     if args.texts_file:
         texts = [ln.strip() for ln in open(args.texts_file) if ln.strip()]
         B = len(texts)
         wavs, info = synth.synthesize_batch(
             texts, [args.style_prompt] * B, [args.voice_wav] * B, frames=args.frames,
             temperature=args.temperature, seed=args.seed, variable_length=args.variable_length)
+        if not main_rank:
+            return
         stem = args.output[:-4] if args.output.endswith(".wav") else args.output
         for i, w in enumerate(wavs):
             write_wav(f"{stem}_{i:03d}.wav", np.asarray(w), cfg.codec.sample_rate)
         print(info)
-        print(f"wrote {B} wavs to {stem}_*.wav")
+        print(f"wrote {B} wavs to {stem}_*.wav"
+              + (f" (data-parallel over {mesh.size()} ranks)" if mesh is not None else ""))
         return
     wav, info = synth.synthesize(args.text, args.style_prompt, args.voice_wav,
                                  frames=args.frames, temperature=args.temperature,
                                  seed=args.seed)
+    if not main_rank:
+        return
     write_wav(args.output, wav, cfg.codec.sample_rate)
     print(info)
     print(f"wrote {args.output}: {info['audio_seconds']:.2f}s audio, RTF {info['rtf']:.3f}")

@@ -13,6 +13,10 @@ package sends to a TPU flash-attention kernel.  On the card that case goes to
 the Hopper flash kernels of ``ops/flash_attention.py`` (forward and backward);
 shorter queries, as in the decode step, and CPU tensors at any length take
 the plain materialized softmax, as the JAX package does off the TPU.
+
+With ``mesh`` the heads shard over the mesh's "model" axis: q/k/v
+column-parallel with their biases, ``o_proj`` row-parallel, and the
+attention (the flash kernels on the card) runs on H / tp local heads.
 """
 from __future__ import annotations
 
@@ -22,27 +26,35 @@ import torch
 import torch.nn as nn
 
 from mamba_tts_torch.device import on_card
-from mamba_tts_torch.models.layers import Dense
+from mamba_tts_torch.models.layers import Dense, row_parallel
 from mamba_tts_torch.ops.flash_attention import (  # noqa: F401  (mask_bias: shared helper)
     flash_attention,
     flash_attention_ref,
     mask_bias,
 )
+from mamba_tts_torch.parallel.comm import copy_to_group
+from mamba_tts_torch.parallel.mesh import model_group
 
 FLASH_MIN_QUERIES = 128
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16):
+    def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16, mesh=None):
         super().__init__()
         assert d_model % n_heads == 0
-        self.d_model, self.n_heads = d_model, n_heads
+        # q/k/v/o split on d_model where it divides (param_shardings); the
+        # port splits whole heads
+        self.tp_group, tp = model_group(mesh, d_model)
+        if n_heads % tp:
+            raise ValueError(f"{n_heads} heads do not divide into {tp} model ranks")
         self.head_dim = d_model // n_heads
+        self.n_heads = n_heads // tp  # this rank's heads
+        self.d_model = self.n_heads * self.head_dim  # this rank's width of q, k, v
         self.dtype = dtype
-        self.q_proj = Dense(d_model, d_model, dtype=dtype)
-        self.k_proj = Dense(d_model, d_model, dtype=dtype)
-        self.v_proj = Dense(d_model, d_model, dtype=dtype)
-        self.o_proj = Dense(d_model, d_model, dtype=dtype)
+        self.q_proj = Dense(d_model, self.d_model, dtype=dtype)
+        self.k_proj = Dense(d_model, self.d_model, dtype=dtype)
+        self.v_proj = Dense(d_model, self.d_model, dtype=dtype)
+        self.o_proj = Dense(self.d_model, d_model, dtype=dtype)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         B, T, _ = x.shape
@@ -50,20 +62,21 @@ class CrossAttention(nn.Module):
 
     def project_memory(self, memory: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """memory (B, Tm, d_model) -> K, V each (B, H, Tm, head_dim)."""
+        memory = copy_to_group(memory, self.tp_group)
         return self._split(self.k_proj(memory)), self._split(self.v_proj(memory))
 
     def attend(self, x: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
                memory_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, Tq, d_model) queries against precomputed K/V."""
         B, Tq, _ = x.shape
-        q = self._split(self.q_proj(x))  # (B, H, Tq, hd)
+        q = self._split(self.q_proj(copy_to_group(x, self.tp_group)))  # (B, H, Tq, hd)
         scale = self.head_dim ** -0.5
         if Tq >= FLASH_MIN_QUERIES and on_card(x):
             out = flash_attention(q, K, V, memory_mask, scale)
         else:
             out = flash_attention_ref(q, K, V, memory_mask, scale)
         out = out.transpose(1, 2).reshape(B, Tq, self.d_model)
-        return self.o_proj(out)
+        return row_parallel(self.o_proj, out, self.tp_group)
 
     def forward(self, x, memory, memory_mask=None):
         K, V = self.project_memory(memory)

@@ -23,6 +23,11 @@ its scans and long-query attention through the Hopper kernels on the card;
 with ``DecoderConfig.remat`` each layer is recomputed in the backward
 (``torch.utils.checkpoint``), as ``nn.remat`` does in the JAX package.
 
+Parallelism: ``mesh`` shards each layer's Mamba block, cross-attention and
+FFN (``ff1`` column-, ``ff2`` row-parallel) over the mesh's "model" axis;
+``sp_mesh`` time-shards the Mamba scans (``DecoderConfig.use_sp_scan``
+requires it, as in JAX).
+
 Mask convention: True = VALID.
 """
 from __future__ import annotations
@@ -37,23 +42,27 @@ import torch.utils.checkpoint
 from mamba_tts_torch.config import DecoderConfig
 from mamba_tts_torch.device import on_card
 from mamba_tts_torch.models.attention import CrossAttention
-from mamba_tts_torch.models.layers import Dense, Embed, LayerNorm, parse_dtype
+from mamba_tts_torch.models.layers import Dense, Embed, LayerNorm, parse_dtype, row_parallel
 from mamba_tts_torch.models.mamba import MambaBlock, MambaState, init_mamba_state
+from mamba_tts_torch.parallel.comm import copy_to_group
+from mamba_tts_torch.parallel.mesh import axis_size, model_group
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, mesh=None, sp_mesh=None, sp_batch_sharded=False):
         super().__init__()
         c = cfg
         dt = parse_dtype(c.dtype)
+        self.tp_group, tp = model_group(mesh, c.d_ff)
         self.norm_mamba = LayerNorm(c.d_model, dtype=dt)
-        self.mamba = MambaBlock(c.with_mamba_dims().mamba, dtype=dt)
+        self.mamba = MambaBlock(c.with_mamba_dims().mamba, dtype=dt, mesh=mesh, sp_mesh=sp_mesh,
+                                sp_axis=c.sp_axis, sp_batch_sharded=sp_batch_sharded)
         self.norm_cross = LayerNorm(c.d_model, dtype=dt)
-        self.cross_attn = CrossAttention(c.d_model, c.n_heads, dtype=dt)
+        self.cross_attn = CrossAttention(c.d_model, c.n_heads, dtype=dt, mesh=mesh)
         self.norm_ff = LayerNorm(c.d_model, dtype=dt)
         self.style_mlp = Dense(c.d_style, 2 * c.d_model, dtype=dt)
-        self.ff1 = Dense(c.d_model, c.d_ff, dtype=dt)
-        self.ff2 = Dense(c.d_ff, c.d_model, dtype=dt)
+        self.ff1 = Dense(c.d_model, c.d_ff // tp, dtype=dt)
+        self.ff2 = Dense(c.d_ff // tp, c.d_model, dtype=dt)
 
     def film_params(self, z_style: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """z_style (B, d_style) -> (gamma, beta) each (B, d_model)."""
@@ -61,8 +70,8 @@ class DecoderLayer(nn.Module):
 
     def _film_ffn_with(self, x, gamma, beta):
         h = self.norm_ff(x)
-        h = gamma[:, None, :] * h + beta[:, None, :]
-        return self.ff2(F.gelu(self.ff1(h), approximate="none"))
+        h = copy_to_group(gamma[:, None, :] * h + beta[:, None, :], self.tp_group)
+        return row_parallel(self.ff2, F.gelu(self.ff1(h), approximate="none"), self.tp_group)
 
     def forward(self, x, memory, z_style, memory_mask=None, mamba_state=None):
         h, new_state = self.mamba(self.norm_mamba(x), mamba_state)
@@ -86,17 +95,32 @@ class DecoderLayer(nn.Module):
 class MambaTTSDecoder(nn.Module):
     """forward(audio_tokens (B,T)|(B,Q,T), text_hidden (B,Tt,d), z_style
     (B,d_style), text_mask, ref_hidden (B,Tr,d), ref_mask) -> logits
-    (B, T_flat, vocab_size_audio); step_with_kv for decoding."""
+    (B, T_flat, vocab_size_audio); step_with_kv for decoding.
 
-    def __init__(self, cfg: DecoderConfig):
+    ``mesh``: tensor parallelism over its "model" axis, the batch rows split
+    over its "data" axis.  ``sp_mesh``: time-sharded scans over
+    ``sp_mesh[cfg.sp_axis]``; when it is ``mesh`` and the sp axis is
+    "data", the scan gathers the rows split over that axis first."""
+
+    def __init__(self, cfg: DecoderConfig, sp_mesh=None, mesh=None):
         super().__init__()
         c = self.cfg = cfg
+        if c.use_sp_scan and sp_mesh is None:
+            raise ValueError(
+                "DecoderConfig.use_sp_scan=True requires constructing the model with the "
+                "mesh: MambaTTSDecoder(cfg, sp_mesh=mesh) / MambaTTS(cfg, sp_mesh=mesh)")
+        if sp_mesh is not None and mesh is not None and sp_mesh is not mesh:
+            raise ValueError("sp_mesh must be the model's mesh when both are given")
+        if sp_mesh is not None and c.sp_axis == "model" and axis_size(sp_mesh, "model") > 1:
+            raise ValueError("the scan's time axis cannot shard over the tensor-parallel "
+                             "'model' axis; use sp_axis='data'")
+        batch_sharded = mesh is not None and c.sp_axis == "data"
         dt = self.dtype = parse_dtype(c.dtype)
         self.token_embed = Embed(c.vocab_size_audio, c.d_model, dtype=dt)
         self.pos_embed = Embed(c.max_len, c.d_model, dtype=dt)
         self.quant_embed = Embed(c.num_quantizers, c.d_model, dtype=dt)
         for i in range(c.n_layers):
-            self.add_module(f"layer_{i}", DecoderLayer(c))
+            self.add_module(f"layer_{i}", DecoderLayer(c, mesh, sp_mesh, batch_sharded))
         self.norm_out = LayerNorm(c.d_model, dtype=dt)
         self.head = Dense(c.d_model, c.vocab_size_audio, dtype=torch.float32)
 

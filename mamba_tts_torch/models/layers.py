@@ -19,6 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mamba_tts_torch.parallel.comm import reduce_from_group
+
 
 def normal_init(t: torch.Tensor, std: float, g: torch.Generator) -> None:
     with torch.no_grad():
@@ -42,6 +44,21 @@ class Dense(nn.Linear):
         normal_init(self.weight, 1.0 / math.sqrt(self.in_features), g)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
+
+
+def row_parallel(dense: Dense, x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel ``Dense`` over a tensor-parallel ``group``: each rank
+    holds the rows of the kernel for its slice of the input features, the
+    partial products are summed over the group in f32, the bias (replicated)
+    is added once, and the result is rounded to the compute dtype.  The plain
+    ``Dense`` without a group."""
+    if group is None:
+        return dense(x)
+    y = reduce_from_group(F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype)).float(),
+                          group)
+    if dense.bias is not None:
+        y = y + dense.bias
+    return y.to(dense.dtype)
 
 
 class Conv(nn.Conv1d):

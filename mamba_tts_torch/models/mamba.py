@@ -11,6 +11,15 @@ step.  ``forward`` (the full-sequence path, with gradients in training) runs
 its scan through the Hopper scan kernels on the card and the plain scan on
 the CPU.
 
+Parallelism (``parallel/``): with ``mesh`` the block shards ``d_inner`` over
+the mesh's "model" axis (``in_proj`` column-parallel, each rank taking its
+slice of the x half and of the z half; ``x_proj`` row-parallel and summed
+before dt/B/C; ``dt_proj``, the conv, ``A_log`` and ``D`` local;
+``out_proj`` row-parallel), so the scan runs on d_inner / tp channels.
+With ``sp_mesh`` the full-sequence scan without an incoming state shards
+its time axis over ``sp_mesh[sp_axis]`` (``parallel/sp_scan.py``), as the
+JAX block does; decode steps and state-carrying calls use the regular scan.
+
 State layout:
     conv: (B, d_conv-1, d_inner)  last inputs of the conv window, compute dtype
     ssm:  (B, d_state, d_inner)   float32
@@ -25,8 +34,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mamba_tts_torch.config import MambaConfig
-from mamba_tts_torch.models.layers import Dense, normal_init
+from mamba_tts_torch.models.layers import Dense, normal_init, row_parallel
 from mamba_tts_torch.ops.selective_scan import selective_scan, selective_scan_step
+from mamba_tts_torch.parallel import comm
+from mamba_tts_torch.parallel.mesh import model_group
+from mamba_tts_torch.parallel.sp_scan import sp_selective_scan
 
 
 class MambaState(NamedTuple):
@@ -39,11 +51,16 @@ def _softplus_inverse(x: torch.Tensor) -> torch.Tensor:
 
 
 class MambaBlock(nn.Module):
-    def __init__(self, cfg: MambaConfig, dtype=torch.bfloat16):
+    """``sp_batch_sharded``: the batch rows are split over the sp axis too."""
+
+    def __init__(self, cfg: MambaConfig, dtype=torch.bfloat16, mesh=None, sp_mesh=None,
+                 sp_axis: str = "data", sp_batch_sharded: bool = False):
         super().__init__()
         c = self.cfg = cfg
         self.dtype = dtype
-        d_in = c.d_inner
+        self.tp_group, tp = model_group(mesh, c.d_inner)
+        self.sp_mesh, self.sp_axis, self.sp_batch_sharded = sp_mesh, sp_axis, sp_batch_sharded
+        d_in = c.d_inner // tp
         self.in_proj = Dense(c.d_model, 2 * d_in, bias=c.use_bias, dtype=dtype)
         self.conv_w = nn.Parameter(torch.zeros(c.d_conv, d_in))
         self.conv_b = nn.Parameter(torch.zeros(d_in)) if c.conv_bias else None
@@ -58,7 +75,7 @@ class MambaBlock(nn.Module):
         uniform with variance 1/dt_rank and a bias with softplus(bias) ~
         log-uniform on [dt_min, dt_max]; D = 1; LeCun-normal conv taps."""
         c = self.cfg
-        d_in = c.d_inner
+        d_in = self.D.shape[0]
         with torch.no_grad():
             normal_init(self.conv_w, 1.0 / math.sqrt(c.d_conv), g)
             if self.conv_b is not None:
@@ -92,7 +109,8 @@ class MambaBlock(nn.Module):
     def _ssm_inputs(self, x_conv: torch.Tensor):
         c = self.cfg
         r = c.dt_rank_actual
-        proj = self.x_proj(x_conv)
+        # row-parallel, then replicated input to the local dt_proj and scan
+        proj = comm.copy_to_group(row_parallel(self.x_proj, x_conv, self.tp_group), self.tp_group)
         dt_raw, Bm, Cm = torch.split(proj, [r, c.d_state, c.d_state], dim=-1)
         dt = F.softplus(self.dt_proj(dt_raw).to(torch.float32))
         return dt, Bm, Cm
@@ -100,19 +118,28 @@ class MambaBlock(nn.Module):
     def forward(self, x: torch.Tensor, state: Optional[MambaState] = None
                 ) -> Tuple[torch.Tensor, MambaState]:
         """Full sequence: x (B, T, d_model) -> (y, new state)."""
-        xin, z = self.in_proj(x.to(self.dtype)).chunk(2, dim=-1)
+        xin, z = self._in_proj(x)
         x_conv, conv_state = self._conv_full(xin, state.conv if state is not None else None)
         x_conv = F.silu(x_conv)
         dt, Bm, Cm = self._ssm_inputs(x_conv)
         A = -torch.exp(self.A_log)
-        y, ssm_state = selective_scan(
-            x_conv, dt, A, Bm, Cm, self.D, h0=state.ssm if state is not None else None)
+        if self.sp_mesh is not None and state is None:
+            y, ssm_state = sp_selective_scan(
+                x_conv, dt, A, Bm, Cm, self.D, self.sp_mesh, self.sp_axis,
+                batch_sharded=self.sp_batch_sharded)
+        else:
+            y, ssm_state = selective_scan(
+                x_conv, dt, A, Bm, Cm, self.D, h0=state.ssm if state is not None else None)
         y = y * F.silu(z)
-        return self.out_proj(y), MambaState(conv=conv_state, ssm=ssm_state)
+        return row_parallel(self.out_proj, y, self.tp_group), MambaState(conv=conv_state, ssm=ssm_state)
+
+    def _in_proj(self, x: torch.Tensor):
+        """Column-parallel: this rank's channels of the x half and the z half."""
+        return self.in_proj(comm.copy_to_group(x.to(self.dtype), self.tp_group)).chunk(2, dim=-1)
 
     def step(self, x_t: torch.Tensor, state: MambaState) -> Tuple[torch.Tensor, MambaState]:
         """One token: x_t (B, 1, d_model) -> (y (B, 1, d_model), new state)."""
-        xin, z = self.in_proj(x_t.to(self.dtype))[:, 0].chunk(2, dim=-1)
+        xin, z = (t[:, 0] for t in self._in_proj(x_t))
         window = torch.cat([state.conv.to(xin.dtype), xin[:, None]], dim=1)
         conv_out = torch.einsum("bkd,kd->bd", window, self.conv_w.to(xin.dtype))
         if self.conv_b is not None:
@@ -122,7 +149,8 @@ class MambaBlock(nn.Module):
         A = -torch.exp(self.A_log)
         y, ssm_state = selective_scan_step(x_conv, dt, A, Bm, Cm, self.D, state.ssm)
         y = y * F.silu(z)
-        return self.out_proj(y)[:, None], MambaState(conv=window[:, 1:], ssm=ssm_state)
+        return (row_parallel(self.out_proj, y, self.tp_group)[:, None],
+                MambaState(conv=window[:, 1:], ssm=ssm_state))
 
     def init_state(self, batch: int) -> MambaState:
         return init_mamba_state(self.cfg, batch, self.dtype, self.A_log.device)

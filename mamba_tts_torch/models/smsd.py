@@ -11,7 +11,8 @@ embeddings.  All four variance modes:
 
 Training objective: the GMM negative log-likelihood (:func:`mixture_nll_loss`,
 :meth:`SMSD.loss`), with dropout in the MDN and ``NoiseNet``'s noise on the
-variance head when ``deterministic=False``.  Sampling: k ~ Categorical(pi),
+variance head when ``deterministic=False``.  :class:`SMSDPipeline` takes
+style-prompt strings through the style-text encoder.  Sampling: k ~ Categorical(pi),
 y = mu_k + sigma_k * eps.  ``torch.Generator`` draws cannot reproduce
 ``jax.random``, so :func:`sample_mixture` also takes ``k`` and ``eps``
 directly; the parity tests feed both packages the same noise that way.
@@ -25,8 +26,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mamba_tts_torch.config import SMSDConfig
-from mamba_tts_torch.models.layers import Dense, LayerNorm, dropout
+from mamba_tts_torch.config import SMSDConfig, StyleEncoderConfig
+from mamba_tts_torch.device import resolve_device
+from mamba_tts_torch.models.layers import Dense, LayerNorm, dropout, seed_init
+from mamba_tts_torch.models.style_text_encoder import StyleTextEncoder
+from mamba_tts_torch.parallel.comm import global_mean
 
 
 class NoiseNet(nn.Module):
@@ -100,8 +104,9 @@ class MDNHead(nn.Module):
 
 def mixture_nll_loss(y_true: torch.Tensor, pi: torch.Tensor, mu: torch.Tensor,
                      sigma: torch.Tensor, variance_mode: str = "isotropic_across_clusters",
-                     fixed_variance: float = 0.01) -> torch.Tensor:
-    """Negative log-likelihood of a Gaussian mixture, mean over the batch.
+                     fixed_variance: float = 0.01, group=None) -> torch.Tensor:
+    """Negative log-likelihood of a Gaussian mixture, mean over the batch
+    (the global batch of the data-parallel ``group``).
 
     y_true (B, d); pi (B, K); mu (B, K, d); sigma (B,) | (B, K) | (B, K, d)
     by mode; "fixed" uses the variance ``fixed_variance``."""
@@ -124,7 +129,8 @@ def mixture_nll_loss(y_true: torch.Tensor, pi: torch.Tensor, mu: torch.Tensor,
     else:
         raise ValueError(f"unknown variance_mode: {variance_mode}")
     log_weighted = torch.log(pi + 1e-8) + logp  # (B, K)
-    return -torch.logsumexp(log_weighted, dim=1).mean()
+    nll = -torch.logsumexp(log_weighted, dim=1)
+    return global_mean(nll.sum(), torch.tensor(float(B), device=nll.device), group)
 
 
 def sample_mixture(
@@ -173,13 +179,52 @@ class SMSD(nn.Module):
         return self.mdn_head(x_bert, deterministic, generator)
 
     def loss(self, x_bert: torch.Tensor, y_true: torch.Tensor, deterministic: bool = False,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None, group=None) -> torch.Tensor:
         pi, mu, sigma = self.mdn_head(x_bert, deterministic, generator)
         return mixture_nll_loss(y_true, pi, mu, sigma, self.cfg.variance_mode,
-                                self.cfg.fixed_variance)
+                                self.cfg.fixed_variance, group)
 
     def sample(self, x_bert: torch.Tensor, generator: Optional[torch.Generator] = None,
                k: Optional[torch.Tensor] = None, eps: Optional[torch.Tensor] = None):
         pi, mu, sigma = self.mdn_head(x_bert)
         return sample_mixture(pi, mu, sigma, self.cfg.variance_mode, self.cfg.fixed_std,
                               generator=generator, k=k, eps=eps)
+
+
+class SMSDPipeline:
+    """Host-side wrapper with the reference's call signature
+    (``mamba_tts_tpu/models/smsd.py:209``): style-prompt strings in, the loss
+    (``y_true`` given) or sampled style vectors out, with ``(pi, mu, sigma)``
+    when ``return_params``.  Composes the port's style-text encoder (BERT)
+    with the MDN head; training uses the pieces directly.  The sample draws
+    from ``generator``, or takes ``k`` (B,) and ``eps`` (B, d) as given."""
+
+    def __init__(self, cfg: SMSDConfig, style_encoder=None, module: Optional[SMSD] = None,
+                 seed: int = 0, device="cuda"):
+        self.cfg = cfg
+        dev = resolve_device(device)
+        if style_encoder is not None:
+            self.encoder = style_encoder
+        elif cfg.bert_dim == 768:
+            self.encoder = StyleTextEncoder(StyleEncoderConfig(), device=dev)
+        else:
+            heads = next(h for h in (12, 8, 4, 2, 1) if cfg.bert_dim % h == 0)
+            self.encoder = StyleTextEncoder(StyleEncoderConfig(
+                d_model=cfg.bert_dim, n_layers=2, n_heads=heads, d_ff=4 * cfg.bert_dim),
+                device=dev)
+        self.module = (module if module is not None else seed_init(SMSD(cfg), seed)).to(dev).eval()
+
+    @torch.no_grad()
+    def __call__(self, style_texts, y_true=None, return_params: bool = False,
+                 generator: Optional[torch.Generator] = None, k: Optional[torch.Tensor] = None,
+                 eps: Optional[torch.Tensor] = None):
+        if isinstance(style_texts, str):
+            style_texts = [style_texts]
+        x = self.encoder.embed(list(style_texts))
+        if y_true is not None:
+            return self.module.loss(x, torch.as_tensor(y_true, device=x.device),
+                                    deterministic=True)
+        y = self.module.sample(x, generator, k=k, eps=eps)
+        if return_params:
+            return y, self.module(x)
+        return y

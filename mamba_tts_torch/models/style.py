@@ -13,6 +13,13 @@ Numerics follow the Flax modules: each ``Dense`` rounds its output to the
 compute dtype, LayerNorm takes Flax's epsilon 1e-6, the attention softmax
 runs in f32 and is cast to V's dtype, GELU is the exact erf form.  Dropout
 draws from the given ``torch.Generator``.  Mask convention: True = valid.
+
+With ``mesh`` each cross-attention block shards its heads (q/k/v column-,
+``o_proj`` row-parallel) and its FFN (``ffn1`` column-, ``ffn2``
+row-parallel) over the mesh's "model" axis, as the JAX rules place them.
+Dropout on a sharded activation (after ``ffn1``) draws from
+``shard_generator``, one stream per model rank; every other draw is
+replicated.
 """
 from __future__ import annotations
 
@@ -24,7 +31,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mamba_tts_torch.config import StylePipelineConfig
-from mamba_tts_torch.models.layers import Dense, LayerNorm, dropout, parse_dtype
+from mamba_tts_torch.models.layers import Dense, LayerNorm, dropout, parse_dtype, row_parallel
+from mamba_tts_torch.parallel.comm import copy_to_group
+from mamba_tts_torch.parallel.mesh import model_group
 
 
 class StyleProjection(nn.Module):
@@ -52,37 +61,50 @@ class StyleCrossAttnBlock(nn.Module):
     """MHA(query = x, key/value = the style token) + residual and LN, then a
     4x FFN + residual and LN: Cross-Attention #1 and #2."""
 
-    def __init__(self, cfg: StylePipelineConfig):
+    def __init__(self, cfg: StylePipelineConfig, mesh=None):
         super().__init__()
         c = self.cfg = cfg
         dt = parse_dtype(c.dtype)
         d = c.d_model
-        self.q_proj = Dense(d, d, dtype=dt)
-        self.k_proj = Dense(d, d, dtype=dt)
-        self.v_proj = Dense(d, d, dtype=dt)
-        self.o_proj = Dense(d, d, dtype=dt)
+        # q/k/v/o split on d, ffn1/ffn2 on 4d, each where it divides
+        # (param_shardings); the port splits whole heads
+        self.tp_group, tp = model_group(mesh, d)
+        if c.num_heads % tp:
+            raise ValueError(f"{c.num_heads} heads do not divide into {tp} model ranks")
+        self.ffn_group, tp_ffn = model_group(mesh, 4 * d)
+        self.heads = c.num_heads // tp  # this rank's heads
+        dl = d // tp
+        self.q_proj = Dense(d, dl, dtype=dt)
+        self.k_proj = Dense(d, dl, dtype=dt)
+        self.v_proj = Dense(d, dl, dtype=dt)
+        self.o_proj = Dense(dl, d, dtype=dt)
         self.attn_ln = LayerNorm(d, dtype=dt)
-        self.ffn1 = Dense(d, 4 * d, dtype=dt)
-        self.ffn2 = Dense(4 * d, d, dtype=dt)
+        self.ffn1 = Dense(d, 4 * d // tp_ffn, dtype=dt)
+        self.ffn2 = Dense(4 * d // tp_ffn, d, dtype=dt)
         self.ffn_ln = LayerNorm(d, dtype=dt)
 
     def forward(self, x: torch.Tensor, style_K: torch.Tensor, style_V: torch.Tensor,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c = self.cfg
+        g = self.tp_group
         B, T, _ = x.shape
-        H = c.num_heads
-        hd = c.d_model // H
-        q = self.q_proj(x).reshape(B, T, H, hd)
-        k = self.k_proj(style_K).reshape(B, -1, H, hd)
-        v = self.v_proj(style_V).reshape(B, -1, H, hd)
+        H = self.heads
+        hd = c.d_model // c.num_heads
+        xs = copy_to_group(x, g)
+        q = self.q_proj(xs).reshape(B, T, H, hd)
+        k = self.k_proj(copy_to_group(style_K, g)).reshape(B, -1, H, hd)
+        v = self.v_proj(copy_to_group(style_V, g)).reshape(B, -1, H, hd)
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
         probs = torch.softmax(logits / math.sqrt(hd), dim=-1).to(v.dtype)
-        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, c.d_model)
-        attn = dropout(self.o_proj(attn), c.dropout, deterministic, generator)
+        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, H * hd)
+        attn = dropout(row_parallel(self.o_proj, attn, g), c.dropout, deterministic, generator)
         x = self.attn_ln(x + attn)
-        h = dropout(F.gelu(self.ffn1(x), approximate="none"), c.dropout, deterministic, generator)
-        h = dropout(self.ffn2(h), c.dropout, deterministic, generator)
+        gf = self.ffn_group
+        h = dropout(F.gelu(self.ffn1(copy_to_group(x, gf)), approximate="none"), c.dropout,
+                    deterministic, generator if gf is None else shard_generator or generator)
+        h = dropout(row_parallel(self.ffn2, h, gf), c.dropout, deterministic, generator)
         return self.ffn_ln(x + h)
 
 
@@ -110,22 +132,25 @@ class StyleConditioningPipeline(nn.Module):
     """project -> Cross-Attention #1 -> length-regulate -> Cross-Attention #2.
     Returns (styled_frames, output_lengths, style_K, style_V)."""
 
-    def __init__(self, cfg: StylePipelineConfig):
+    def __init__(self, cfg: StylePipelineConfig, mesh=None):
         super().__init__()
         self.style_proj = StyleProjection(cfg)
-        self.cross_attn_1 = StyleCrossAttnBlock(cfg)
-        self.cross_attn_2 = StyleCrossAttnBlock(cfg)
+        self.cross_attn_1 = StyleCrossAttnBlock(cfg, mesh)
+        self.cross_attn_2 = StyleCrossAttnBlock(cfg, mesh)
 
     def forward(self, text_hidden: torch.Tensor, style_emb: torch.Tensor,
                 durations: torch.Tensor, text_mask: Optional[torch.Tensor] = None,
                 max_frame_len: int = 1024, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                shard_generator: Optional[torch.Generator] = None):
         style_K, style_V = self.style_proj(style_emb, deterministic, generator)
-        styled_text = self.cross_attn_1(text_hidden, style_K, style_V, deterministic, generator)
+        styled_text = self.cross_attn_1(text_hidden, style_K, style_V, deterministic, generator,
+                                        shard_generator)
         if text_mask is not None:
             durations = durations * text_mask.to(durations.dtype)
         upsampled, output_lengths = length_regulate(styled_text, durations, max_frame_len)
-        styled_frames = self.cross_attn_2(upsampled, style_K, style_V, deterministic, generator)
+        styled_frames = self.cross_attn_2(upsampled, style_K, style_V, deterministic, generator,
+                                          shard_generator)
         return styled_frames, output_lengths, style_K, style_V
 
     def forward_with_target(self, text_hidden: torch.Tensor, style_emb: torch.Tensor,

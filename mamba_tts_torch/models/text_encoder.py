@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from mamba_tts_torch.config import DurationPredictorConfig, TextEncoderConfig
 from mamba_tts_torch.models.attention import mask_bias
 from mamba_tts_torch.models.layers import Conv, Dense, Embed, LayerNorm, dropout, parse_dtype
+from mamba_tts_torch.parallel.comm import global_mean
 
 
 def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -148,12 +149,11 @@ class DurationPredictor(nn.Module):
 
 
 def duration_loss(log_duration_pred: torch.Tensor, duration_target: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """MSE in log space against log(target + 1e-8), masked mean over valid
-    positions (mask True = valid)."""
+    positions (mask True = valid); over the global batch of the
+    data-parallel ``group``."""
     log_target = torch.log(duration_target.to(torch.float32) + 1e-8)
     err = (log_duration_pred.to(torch.float32) - log_target) ** 2
-    if mask is not None:
-        m = mask.to(torch.float32)
-        return (err * m).sum() / torch.clamp(m.sum(), min=1.0)
-    return err.mean()
+    m = torch.ones_like(err) if mask is None else mask.to(torch.float32)
+    return global_mean((err * m).sum(), m.sum(), group)

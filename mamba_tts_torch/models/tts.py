@@ -14,9 +14,18 @@ Training graph (:meth:`MambaTTS.compute_losses`):
       + w_dur   * MSE(log durations)                    [heuristic targets
         from the true frame counts]
       + w_smsd  * GMM-NLL(spk_embs | style prompt)
+
+Parallelism: ``MambaTTS(cfg, sp_mesh=..., mesh=...)``.  ``mesh`` shards the
+decoder and the style branch over its "model" axis (``shardings``: each
+parameter's split, from ``parallel/mesh.py``'s rules) and splits the batch rows
+over its "data" axis: then every loss that normalises over the batch sums
+its numerator and its denominator over "data" before dividing, so a
+data-parallel step is the global batch's step.  ``sp_mesh`` time-shards
+the decoder's scans (``cfg.decoder.use_sp_scan``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -27,6 +36,8 @@ from mamba_tts_torch.models.decoder import MambaTTSDecoder
 from mamba_tts_torch.models.smsd import SMSD, sample_mixture
 from mamba_tts_torch.models.style import StyleConditioningPipeline
 from mamba_tts_torch.models.text_encoder import DurationPredictor, TextEncoder, duration_loss
+from mamba_tts_torch.parallel.comm import global_mean
+from mamba_tts_torch.parallel.mesh import axis_group, axis_size, param_shardings
 
 
 def heuristic_durations(text_mask: torch.Tensor, target_frames: torch.Tensor) -> torch.Tensor:
@@ -37,25 +48,34 @@ def heuristic_durations(text_mask: torch.Tensor, target_frames: torch.Tensor) ->
     return per_ph[:, None] * text_mask.to(per_ph.dtype)
 
 
-def codec_ce_loss(logits: torch.Tensor, targets: torch.Tensor, pad_id: int = 0) -> torch.Tensor:
-    """Cross-entropy over flattened codec tokens, ignoring PAD."""
+def codec_ce_loss(logits: torch.Tensor, targets: torch.Tensor, pad_id: int = 0,
+                  group=None) -> torch.Tensor:
+    """Cross-entropy over flattened codec tokens, ignoring PAD; over the
+    global batch of the data-parallel ``group``."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     valid = (targets != pad_id).to(torch.float32)
-    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return global_mean((nll * valid).sum(), valid.sum(), group)
 
 
 class MambaTTS(nn.Module):
-    def __init__(self, cfg: TTSConfig):
+    def __init__(self, cfg: TTSConfig, sp_mesh=None, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.dp_group = axis_group(mesh, "data")
         # registered first, so that ``seed_init`` (last module first) draws it
         # last and every other component keeps the draws it had without it
-        self.style_pipe = StyleConditioningPipeline(cfg.style)
+        self.style_pipe = StyleConditioningPipeline(cfg.style, mesh)
         self.text_encoder = TextEncoder(cfg.text_encoder)
         self.dur_predictor = DurationPredictor(cfg.duration)
         self.smsd = SMSD(cfg.smsd)
-        self.decoder = MambaTTSDecoder(cfg.decoder.with_mamba_dims())
+        self.decoder = MambaTTSDecoder(cfg.decoder.with_mamba_dims(), sp_mesh, mesh)
+        self.shardings = None  # name -> Split on "model" (or None), with tensor parallelism
+        if axis_size(mesh, "model") > 1:
+            with torch.device("meta"):  # the full model's shapes, no storage
+                full = MambaTTS(dataclasses.replace(
+                    cfg, decoder=dataclasses.replace(cfg.decoder, use_sp_scan=False)))
+            self.shardings = param_shardings(dict(full.named_parameters()), mesh)
 
     # ------------------------------------------------------------- training
 
@@ -63,7 +83,9 @@ class MambaTTS(nn.Module):
                        generator: Optional[torch.Generator] = None,
                        style_k: Optional[torch.Tensor] = None,
                        style_eps: Optional[torch.Tensor] = None,
-                       use_nar_branch: bool = False) -> Dict[str, torch.Tensor]:
+                       use_nar_branch: bool = False,
+                       shard_generator: Optional[torch.Generator] = None
+                       ) -> Dict[str, torch.Tensor]:
         """batch keys: phoneme_ids (B, L) | text_mask (B, L) bool | style_bert
         (B, bert_dim) | spk_embs (B, style_dim) | target_codec (B, S, Q)
         shifted ids | target_frames (B,) | voice_codec (B, S, Q).
@@ -72,7 +94,9 @@ class MambaTTS(nn.Module):
         take ``generator``; ``style_k`` / ``style_eps`` hand the draw in.
         ``use_nar_branch`` also runs the NAR style branch on the predicted
         durations, after everything else (so that its dropout draws move no
-        other), and consumes nothing of it."""
+        other), and consumes nothing of it.  ``shard_generator`` draws the
+        dropout of activations sharded over the "model" axis (one stream per
+        model rank; ``generator`` when None)."""
         c = self.cfg
         dec_cfg = c.decoder
         tr = c.train
@@ -83,7 +107,8 @@ class MambaTTS(nn.Module):
 
         # SMSD: NLL against the speaker embeddings, and a sampled style that
         # carries no gradient.
-        loss_smsd = self.smsd.loss(batch["style_bert"], batch["spk_embs"], deterministic, generator)
+        loss_smsd = self.smsd.loss(batch["style_bert"], batch["spk_embs"], deterministic, generator,
+                                   group=self.dp_group)
         with torch.no_grad():
             pi, mu, sigma = self.smsd(batch["style_bert"])
             z_style = sample_mixture(pi, mu, sigma, c.smsd.variance_mode, c.smsd.fixed_std,
@@ -91,7 +116,7 @@ class MambaTTS(nn.Module):
 
         log_dur = self.dur_predictor(text_hidden, text_mask, deterministic, generator)
         dur_target = heuristic_durations(text_mask, batch["target_frames"])
-        loss_dur = duration_loss(log_dur, dur_target, text_mask)
+        loss_dur = duration_loss(log_dur, dur_target, text_mask, group=self.dp_group)
 
         # voice prompt -> reference conditioning
         ref_hidden, ref_mask = self.embed_voice(batch["voice_codec"])
@@ -107,12 +132,13 @@ class MambaTTS(nn.Module):
         pos_ids = torch.arange(S, device=dev).repeat(Q)[None]
         logits = self.decoder(inputs, text_hidden, z_style, text_mask, ref_hidden, ref_mask,
                               quant_ids=quant_ids, pos_ids=pos_ids)
-        loss_codec = codec_ce_loss(logits, targets, pad_id=dec_cfg.pad_id)
+        loss_codec = codec_ce_loss(logits, targets, pad_id=dec_cfg.pad_id, group=self.dp_group)
 
         if use_nar_branch:
             self.style_pipe(text_hidden, z_style, torch.exp(log_dur).detach(), text_mask,
                             max_frame_len=dec_cfg.max_len // dec_cfg.num_quantizers,
-                            deterministic=deterministic, generator=generator)
+                            deterministic=deterministic, generator=generator,
+                            shard_generator=shard_generator)
 
         loss_total = tr.w_codec * loss_codec + tr.w_dur * loss_dur + tr.w_smsd * loss_smsd
         return {"loss_total": loss_total, "loss_codec": loss_codec, "loss_dur": loss_dur,

@@ -647,6 +647,7 @@ cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t s) {
   scan_carry<<<dim3((N * a.D + kCarryThreads - 1) / kCarryThreads, a.Bz), kCarryThreads, 0, s>>>(
       A, static_cast<const float*>(a.h0), sdt, ws, static_cast<float*>(a.hT), N, a.D, nc, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (a.y == nullptr) return cudaSuccess;  // the final state (and ckpt) only
   scan_fwd_output<TU, C, N><<<dim3(cols, nc, a.Bz), kRowThreads, m3, s>>>(
       static_cast<const TU*>(a.u), dt, A, static_cast<const TU*>(a.Bm),
       static_cast<const TU*>(a.Cm), static_cast<const float*>(a.Dsk), ws, static_cast<TU*>(a.y),
@@ -736,7 +737,9 @@ extern "C" {
 // dt, A (D, N), Dsk (D,), h0 (B, N, D) (may be null: zeros), hT (B, N, D)
 // and ws (B, ceil(L/chunk), N, D) are f32: ws returns the chunk-start states
 // (it is ckpt for the checkpointing forward, a workspace otherwise); sdt
-// (B, ceil(L/chunk), D) f32 is a workspace.  The launch plan: the summary
+// (B, ceil(L/chunk), D) f32 is a workspace.  y may be null: then only the
+// summary and the carry run (hT and ws), for a pass that needs only the
+// final state.  The launch plan: the summary
 // and output passes' shared memory in bytes; a plan this source lays out
 // differently is refused (cudaErrorInvalidValue).
 // The wrapper guarantees contiguity.

@@ -48,8 +48,9 @@ def _f32(*ts):
     return [None if t is None else t.to(torch.float32) for t in ts]
 
 
-def scan_ckpt_ref(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK):
-    """Plain forward with checkpoints: (y in ``u.dtype``, h_T f32, ckpt f32)."""
+def scan_ckpt_ref(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK, output: bool = True):
+    """Plain forward with checkpoints: (y in ``u.dtype``, h_T f32, ckpt f32);
+    y None with ``output=False``, as the kernels give it."""
     out_dtype = u.dtype
     u, delta, B, C, D, h0 = _f32(u, delta, B, C, D, h0)
     A_nd = A.to(torch.float32).T
@@ -63,8 +64,8 @@ def scan_ckpt_ref(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK):
         d_t = delta[:, t]
         h = torch.exp(d_t[:, None, :] * A_nd[None]) * h + (d_t * u[:, t])[:, None, :] * B[:, t, :, None]
         ys.append(torch.einsum("bnd,bn->bd", h, C[:, t]))
-    y = torch.stack(ys, dim=1) + u * D[None, None, :]
-    return y.to(out_dtype), h, torch.stack(ckpt, dim=1)
+    y = (torch.stack(ys, dim=1) + u * D[None, None, :]).to(out_dtype) if output else None
+    return y, h, torch.stack(ckpt, dim=1)
 
 
 def scan_bwd_ref(u, delta, A, B, C, ckpt, dy, dhT, chunk: int = CHUNK):
@@ -247,14 +248,14 @@ def _raise_on(err: int, what: str) -> None:
                            f"{_library().selective_scan_error_string(err).decode()}")
 
 
-def _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt):
+def _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt, output=True):
     check_scan_args(u, delta, A, B, C, chunk, D=D, h0=h0)
     Bz, T, Dm = u.shape
     N = A.shape[1]
     plan = scan_launch_plan(Bz, T, Dm, N, chunk)
     nc = -(-T // chunk)
     f32 = dict(dtype=torch.float32, device=u.device)
-    y = torch.empty_like(u)
+    y = torch.empty_like(u) if output else None
     hT = torch.empty((Bz, N, Dm), **f32)
     ws = torch.empty((Bz, nc, N, Dm), **f32)  # the chunk-start states: ckpt when asked for
     sdt = torch.empty((Bz, nc, Dm), **f32)
@@ -263,23 +264,26 @@ def _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.selective_scan_fwd_launch(
             u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            D.data_ptr(), _ptr(h0), y.data_ptr(), hT.data_ptr(), ws.data_ptr(), sdt.data_ptr(),
+            D.data_ptr(), _ptr(h0), _ptr(y), hT.data_ptr(), ws.data_ptr(), sdt.data_ptr(),
             Bz, T, Dm, N, chunk, int(u.dtype == torch.bfloat16),
             plan.fwd_summary.smem_bytes, plan.fwd_output.smem_bytes, stream)
     _raise_on(err, "selective_scan forward kernels")
     return y, hT, ws if with_ckpt else None
 
 
-def selective_scan_fwd(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK):
-    """Forward kernels without checkpoints: (y in ``u.dtype``, h_T f32)."""
-    y, hT, _ = _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt=False)
+def selective_scan_fwd(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK, output: bool = True):
+    """Forward kernels without checkpoints: (y in ``u.dtype``, h_T f32).
+    ``output=False`` runs the summary and the carry only: (None, h_T)."""
+    y, hT, _ = _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt=False, output=output)
     selective_scan_fwd.launches += 1
     return y, hT
 
 
-def selective_scan_fwd_ckpt(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK):
-    """Forward kernels with checkpoints: (y, h_T, ckpt)."""
-    out = _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt=True)
+def selective_scan_fwd_ckpt(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK,
+                            output: bool = True):
+    """Forward kernels with checkpoints: (y, h_T, ckpt); y None with
+    ``output=False`` (summary and carry only)."""
+    out = _forward(u, delta, A, B, C, D, h0, chunk, with_ckpt=True, output=output)
     selective_scan_fwd_ckpt.launches += 1
     return out
 
@@ -323,17 +327,20 @@ class SelectiveScanFn(torch.autograd.Function):
     """The scan with the kernels as forward and backward: the checkpointing
     forward kernel, then the backward kernel on the saved checkpoints.  The
     D-skip terms and the casts to each input's dtype stay outside the
-    kernels, as in ``_scan_vjp_bwd`` (``pallas_scan.py:318-353``)."""
+    kernels, as in ``_scan_vjp_bwd`` (``pallas_scan.py:318-353``).  With
+    ``output=False`` the forward runs no output pass and returns h_T alone
+    (its backward has no dy)."""
 
     @staticmethod
-    def forward(ctx, u, delta, A, B, C, D, h0, chunk):
-        y, hT, ckpt = selective_scan_fwd_ckpt(u, delta, A, B, C, D, h0, chunk)
+    def forward(ctx, u, delta, A, B, C, D, h0, chunk, output=True):
+        y, hT, ckpt = selective_scan_fwd_ckpt(u, delta, A, B, C, D, h0, chunk, output=output)
         ctx.save_for_backward(u, delta, A, B, C, D, ckpt)
-        ctx.chunk, ctx.has_h0 = chunk, h0 is not None
-        return y, hT
+        ctx.chunk, ctx.has_h0, ctx.output = chunk, h0 is not None, output
+        return (y, hT) if output else hT
 
     @staticmethod
-    def backward(ctx, dy, dhT):
+    def backward(ctx, *grads):
+        dy, dhT = grads if ctx.output else (None, grads[0])
         u, delta, A, B, C, D, ckpt = ctx.saved_tensors
         Bz, T, Dm = u.shape
         N = A.shape[1]
@@ -346,21 +353,24 @@ class SelectiveScanFn(torch.autograd.Function):
         dD = (dy * u.to(torch.float32)).sum(dim=(0, 1))
         dA = dA_b.sum(dim=0).T
         return (du.to(u.dtype), ddt.to(delta.dtype), dA.to(A.dtype), dB.to(B.dtype),
-                dC.to(C.dtype), dD.to(D.dtype), dh0 if ctx.has_h0 else None, None)
+                dC.to(C.dtype), dD.to(D.dtype), dh0 if ctx.has_h0 else None, None, None)
 
 
-def selective_scan_pallas(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+def selective_scan_pallas(u, delta, A, B, C, D, h0=None, chunk: int = CHUNK, output: bool = True
+                          ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """The card's full-sequence scan: :class:`SelectiveScanFn` when a
     gradient is needed (checkpointing forward + backward kernel), the plain
     forward kernel otherwise, as ``custom_vjp`` runs the primal kernel
     outside differentiation.  Makes the kernels' operands contiguous (B and C
-    arrive as views of one projection) and f32 where the kernels read f32."""
+    arrive as views of one projection) and f32 where the kernels read f32.
+    ``output=False`` gives (None, h_T) from the summary and carry launches
+    alone."""
     u, B, C = u.contiguous(), B.contiguous(), C.contiguous()
     delta = delta.to(torch.float32).contiguous()
     A, D = A.to(torch.float32).contiguous(), D.to(torch.float32).contiguous()
     h0 = None if h0 is None else h0.to(torch.float32).contiguous()
     inputs = (u, delta, A, B, C, D) + (() if h0 is None else (h0,))
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        return SelectiveScanFn.apply(u, delta, A, B, C, D, h0, chunk)
-    return selective_scan_fwd(u, delta, A, B, C, D, h0, chunk)
+        out = SelectiveScanFn.apply(u, delta, A, B, C, D, h0, chunk, output)
+        return out if output else (None, out)
+    return selective_scan_fwd(u, delta, A, B, C, D, h0, chunk, output=output)

@@ -82,14 +82,17 @@ def selective_scan_step(
     return y.to(out_dtype), h_new
 
 
-def selective_scan(u, delta, A, B, C, D, h0=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def selective_scan(u, delta, A, B, C, D, h0=None, output: bool = True
+                   ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Full-sequence scan used by ``MambaBlock.forward``: the Hopper kernels
     for CUDA tensors (:func:`~mamba_tts_torch.ops.pallas_scan.selective_scan_pallas`),
-    the plain scan for CPU tensors."""
+    the plain scan for CPU tensors.  ``output=False`` asks for the
+    final state only, (None, h_T): the kernels then skip the output pass."""
     if on_card(u):
         from mamba_tts_torch.ops.pallas_scan import selective_scan_pallas
 
-        return selective_scan_pallas(u, delta, A, B, C, D, h0)
+        return selective_scan_pallas(u, delta, A, B, C, D, h0, output=output)
     if u.device.type != "cpu":
         raise ValueError(f"selective_scan: unsupported device {u.device}")
-    return selective_scan_ref(u, delta, A, B, C, D, h0)
+    y, hT = selective_scan_ref(u, delta, A, B, C, D, h0)
+    return (y if output else None), hT

@@ -21,13 +21,26 @@ with no front-end work in the loop:
 
 On the card every decoder layer's selective scan and long-query
 cross-attention run through the Hopper kernels (``ops/pallas_scan.py``,
-``ops/flash_attention.py``), forward and backward.  ``--mesh`` is not ported
-and raises ``NotImplementedError`` naming its ROADMAP item (queue 1 item 7,
-parallelism).
+``ops/flash_attention.py``), forward and backward.
+
+``--mesh d,m`` trains data-parallel over d ranks and tensor-parallel over m
+(``parallel/mesh.py``), one process a rank, under ``torchrun`` or
+``parallel/dryrun.py`` ``spawn``:
+
+    torchrun --nproc_per_node 4 -m mamba_tts_torch.train.train --synthetic --mesh 2,2
+
+Every rank reads the same global batch and keeps its rows; the gradients
+are summed over "data" and each loss is the global batch's, so a step equals
+the unsharded step up to summation order; dropout and noise draw from
+(seed, step, data rank), and activations sharded over "model" from
+(seed, step, data rank, model rank): the same distributions as the unsharded
+step, not the same numbers.  With ``decoder.use_sp_scan`` in the config the
+scans shard their time axis over the "data" axis as well.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import shutil
 import tempfile
 import time
@@ -42,34 +55,82 @@ from mamba_tts_torch.config import TTSConfig
 from mamba_tts_torch.device import resolve_device
 from mamba_tts_torch.models.layers import seed_init
 from mamba_tts_torch.models.tts import MambaTTS
+from mamba_tts_torch.parallel import comm
+from mamba_tts_torch.parallel.distributed import rank_mesh
+from mamba_tts_torch.parallel.mesh import (
+    axis_group,
+    axis_rank,
+    axis_size,
+    shard_batch,
+    shard_params,
+)
 from mamba_tts_torch.train import state as state_lib
 
 _SEED_MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant: (seed, step) -> generator seed
+_STREAM_MIX = 0xC2B2AE3D27D4EB4F  # another: one stream per rank
 
 
-def build_model(cfg: TTSConfig) -> MambaTTS:
-    return MambaTTS(cfg)
+def build_model(cfg: TTSConfig, sp_mesh=None, mesh=None) -> MambaTTS:
+    return MambaTTS(cfg, sp_mesh=sp_mesh, mesh=mesh)
 
 
-def init_params(model: MambaTTS, seed: int = 0,
-                params: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
+def init_params(model: MambaTTS, seed: int = 0, params: Optional[Mapping[str, Any]] = None,
+                mesh=None) -> Dict[str, torch.Tensor]:
     """Seeded random init of ``model`` in place, or the JAX package's params
-    tree (numpy leaves) through the weight bridge.  Returns the model's
-    parameters by name."""
+    tree (numpy leaves) through the weight bridge.  For a model built on
+    ``mesh`` the full model is initialised and this rank's shards are copied
+    in, so every mesh shape starts from the same weights.  Returns the
+    model's parameters by name."""
+    full = model
+    if mesh is not None:
+        cfg = model.cfg
+        full = MambaTTS(dataclasses.replace(
+            cfg, decoder=dataclasses.replace(cfg.decoder, use_sp_scan=False)))
     if params is None:
-        seed_init(model, seed)
+        seed_init(full, seed)
     else:
         from mamba_tts_torch.bridge import load_params
 
-        load_params(model, params)
+        load_params(full, params)
+    if mesh is not None:
+        state_lib.copy_params(dict(model.named_parameters()),
+                              shard_params(dict(full.named_parameters()), mesh))
     return dict(model.named_parameters())
 
 
-def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+def step_generator(seed: int, step: int, device: torch.device, stream: int = 0
+                   ) -> torch.Generator:
     """The generator of one train step (dropout, NoiseNet, the z_style draw):
     a function of ``--seed`` and the step, as the JAX loop folds the step
-    into its key, so a resumed run draws what an uninterrupted one would."""
-    return torch.Generator(device=device).manual_seed((seed * _SEED_MIX + step) % 2 ** 63)
+    into its key, so a resumed run draws what an uninterrupted one would;
+    ``stream`` > 0 gives another rank its own draws."""
+    return torch.Generator(device=device).manual_seed(
+        (seed * _SEED_MIX + step + stream * _STREAM_MIX) % 2 ** 63)
+
+
+def step_generators(seed: int, step: int, device: torch.device, mesh=None):
+    """(generator, shard generator) of a train step on ``mesh``: the first
+    draws everything replicated over "model" (dropout, NoiseNet, z_style),
+    one stream per data rank; the second the dropout of activations sharded
+    over "model", one stream per (data rank, model rank); None without
+    tensor parallelism."""
+    data_rank = axis_rank(mesh, "data")
+    gen = step_generator(seed, step, device, data_rank)
+    if axis_size(mesh, "model") == 1:
+        return gen, None
+    stream = (1 + axis_rank(mesh, "model")) * 2 ** 20 + data_rank
+    return gen, step_generator(seed, step, device, stream)
+
+
+def sync_gradients(grads: Dict[str, torch.Tensor], group) -> None:
+    """Sum the gradients over the data-parallel ``group`` in place (one
+    all-reduce over all of them)."""
+    if comm.group_size(group) == 1:
+        return
+    ts = list(grads.values())
+    flat = comm.all_reduce_(torch.cat([t.reshape(-1) for t in ts]), group)
+    for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+        t.copy_(part.view_as(t))
 
 
 def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -87,35 +148,42 @@ def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device) -> Di
 
 
 def make_train_step(model: MambaTTS, tx: state_lib.Optimizer, seed: int = 0,
-                    use_nar_branch: bool = False):
-    """(state, batch) -> (state advanced one step, losses as 0-dim tensors).
-    The step's gradients of every parameter feed ``tx`` (a parameter the
-    graph does not reach, ``style_pipe`` always, gets a zero gradient).
-    ``use_nar_branch`` runs the NAR style branch in the step, as the JAX
-    package's flag does; no loss consumes it."""
+                    use_nar_branch: bool = False, mesh=None):
+    """(state, batch, out=None, **kw) -> (state advanced one step, losses as
+    0-dim tensors).  The step's gradients of every parameter feed ``tx`` (a
+    parameter the graph does not reach, ``style_pipe`` always, gets a zero
+    gradient).  ``use_nar_branch`` runs the NAR style branch in the step, as
+    the JAX package's flag does; no loss consumes it.  On ``mesh`` the batch
+    is this rank's rows and the gradients are summed over "data" before the
+    update.  ``kw`` go to ``compute_losses`` (``deterministic``,
+    ``style_k``, ``style_eps``).  A dict ``out`` receives the step's
+    gradients after the data-parallel sum (``grads``, this rank's shards)
+    and their global norm before clipping (``norm``)."""
+    dp_group = axis_group(mesh, "data")
 
-    def train_step(st: state_lib.TrainState, batch: Dict[str, torch.Tensor]):
+    def train_step(st: state_lib.TrainState, batch: Dict[str, torch.Tensor],
+                   out: Optional[Dict[str, Any]] = None, **kw):
         device = next(iter(st.params.values())).device
         for p in st.params.values():
             p.grad = None
-        losses = model.compute_losses(batch, deterministic=False,
-                                      generator=step_generator(seed, st.step, device),
-                                      use_nar_branch=use_nar_branch)
+        gen, shard_gen = step_generators(seed, st.step, device, mesh)
+        kw = {"deterministic": False, "generator": gen, "shard_generator": shard_gen,
+              "use_nar_branch": use_nar_branch, **kw}
+        losses = model.compute_losses(batch, **kw)
         losses["loss_total"].backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in st.params.items()}
-        opt_state = tx.apply(st.params, grads, st.opt_state)
+        sync_gradients(grads, dp_group)
+        norm = tx.global_norm(list(grads), list(grads.values()))
+        opt_state = tx.apply(st.params, grads, st.opt_state, norm=norm)
         for p in st.params.values():
             p.grad = None
+        if out is not None:
+            out.update(grads=grads, norm=norm)
         return (st.replace(step=st.step + 1, opt_state=opt_state),
                 {k: v.detach() for k, v in losses.items()})
 
     return train_step
-
-
-def _not_ported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} is not ported to the PyTorch package yet "
-                               f"(ROADMAP.md queue 1 {item})")
 
 
 def main(argv: Optional[list] = None) -> Dict[str, Any]:
@@ -141,7 +209,7 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
                         help="path to a real BERT vocab.txt for the style-text encoder; "
                              "without it the WordPiece tokenizer uses a hash vocabulary (warns)")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="mesh shape as 'data,model' (not ported: raises)")
+                        help="mesh shape as 'data,model', e.g. '4,2' (one process a rank)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--loader", choices=["batches", "grain"], default="batches",
                         help="online-path input pipeline: plain dataset.batches or the "
@@ -157,9 +225,10 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
                         help="cuda (the Hopper kernels) or cpu (the plain PyTorch path)")
     args = parser.parse_args(argv)
 
-    if args.mesh:
-        raise _not_ported("--mesh (dp/tp parallelism)", "item 7")
     device = resolve_device(args.device)
+    mesh = (rank_mesh(tuple(int(x) for x in args.mesh.split(",")), ("data", "model"), device)
+            if args.mesh else None)
+    main_rank = mesh is None or mesh.get_rank() == 0
 
     cfg = config_lib.from_json(open(args.config_json).read()) if args.config_json else TTSConfig()
     for key in ("batch_size", "lr", "max_steps", "w_codec", "w_dur", "w_smsd"):
@@ -178,7 +247,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
             from mamba_tts_torch.data.preprocess import OfflineDataset
 
             offline = OfflineDataset(args.preprocessed_dir)
-            print(f"offline dataset: {len(offline)} items from {args.preprocessed_dir}")
+            if main_rank:
+                print(f"offline dataset: {len(offline)} items from {args.preprocessed_dir}")
 
             def batch_iter(epoch_seed):
                 return offline.batches(cfg.train.batch_size, max_text_len=cfg.data.max_text_len,
@@ -194,7 +264,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
             else:
                 csv_path, audio_root = args.csv_path, args.audio_root
             dataset = VccmTTSDataset(csv_path, audio_root, cfg.data.sample_rate, seed=args.seed)
-            print(f"dataset: {len(dataset)} items ({dataset.skipped} skipped)")
+            if main_rank:
+                print(f"dataset: {len(dataset)} items ({dataset.skipped} skipped)")
             preparer = BatchPreparer(cfg, device=device)
             if args.loader == "grain":
                 from mamba_tts_torch.data.grain_pipeline import make_grain_loader
@@ -210,23 +281,31 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
                 for inputs, target_wav in raw_batches(epoch_seed):
                     yield preparer(inputs, target_wav)
 
-        model = build_model(cfg)
-        init_params(model, args.seed)
+        model = build_model(cfg, sp_mesh=mesh if cfg.decoder.use_sp_scan else None, mesh=mesh)
+        init_params(model, args.seed, mesh=mesh)
         model.to(device)
         params = dict(model.named_parameters())
-        print(f"model: {sum(p.numel() for p in params.values()) / 1e6:.1f}M params")
-        tx = state_lib.make_optimizer(cfg.train.lr, cfg.train.grad_clip_norm)
+        if main_rank:
+            print(f"model: {sum(p.numel() for p in params.values()) / 1e6:.1f}M params"
+                  + (f" (this rank's shards; mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))})"
+                     if mesh is not None else ""))
+        tx = state_lib.make_optimizer(cfg.train.lr, cfg.train.grad_clip_norm, mesh=mesh,
+                                      shardings=model.shardings)
         train_state = state_lib.create_train_state(params, tx)
         # the config beside the checkpoints, so that inference can configure itself
-        Path(args.checkpoint_dir).mkdir(parents=True, exist_ok=True)
-        (Path(args.checkpoint_dir) / "config.json").write_text(config_lib.to_json(cfg))
+        if main_rank:
+            Path(args.checkpoint_dir).mkdir(parents=True, exist_ok=True)
+            (Path(args.checkpoint_dir) / "config.json").write_text(config_lib.to_json(cfg))
         if args.resume:
-            train_state, restored = state_lib.restore_checkpoint(args.checkpoint_dir, train_state)
-            print("resume: " + (f"restored step {train_state.step}" if restored
-                                else "no checkpoint found"))
+            train_state, restored = state_lib.restore_checkpoint(args.checkpoint_dir, train_state,
+                                                                 mesh=mesh)
+            if main_rank:
+                print("resume: " + (f"restored step {train_state.step}" if restored
+                                    else "no checkpoint found"))
 
-        train_step = make_train_step(model, tx, seed=args.seed)
-        logger = MetricsLogger(log_file=args.log_file, tensorboard_dir=args.tensorboard_dir)
+        train_step = make_train_step(model, tx, seed=args.seed, mesh=mesh)
+        logger = MetricsLogger(log_file=args.log_file if main_rank else None,
+                               tensorboard_dir=args.tensorboard_dir if main_rank else None)
         timer = StepTimer(skip_first=1)
         step = start_step = train_state.step
         history = []
@@ -237,35 +316,43 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
             for batch in batch_iter(step):
                 if step >= cfg.train.max_steps:
                     break
-                if args.profile_dir and step - start_step == 2 and profile_ctx is None:
+                if args.profile_dir and main_rank and step - start_step == 2 and profile_ctx is None:
                     profile_ctx = trace(args.profile_dir)
                     profile_ctx.__enter__()
                 batch = batch_to_device(batch, device)
+                if mesh is not None:
+                    batch = shard_batch(batch, mesh)
                 with timer:
                     train_state, losses = train_step(train_state, batch)
                     losses = {k: float(v) for k, v in losses.items()}  # waits for the step
                 history.append({"step": step, **losses})
-                if step % cfg.train.log_every == 0:
-                    logger.log(step, losses, tokens=int(batch["target_codec"].numel()))
+                if step % cfg.train.log_every == 0 and main_rank:
+                    logger.log(step, losses, tokens=int(batch["target_codec"].numel())
+                               * axis_size(mesh, "data"))
                 if profile_ctx is not None and step - start_step >= 4:
                     profile_ctx.__exit__(None, None, None)
                     profile_ctx = None
                     print(f"profiler trace written to {args.profile_dir}")
                 step += 1
                 if step % args.checkpoint_every == 0:
-                    state_lib.save_checkpoint(args.checkpoint_dir, train_state)
-                    print(f"checkpoint saved at step {step}")
+                    state_lib.save_checkpoint(args.checkpoint_dir, train_state, mesh=mesh,
+                                              shardings=model.shardings)
+                    if main_rank:
+                        print(f"checkpoint saved at step {step}")
             if step == epoch_start:
                 raise ValueError(f"an epoch gave no batch of {cfg.train.batch_size}: "
                                  "the dataset holds fewer items than the batch size")
         if profile_ctx is not None:
             profile_ctx.__exit__(None, None, None)
         if cfg.train.max_steps > 0 and step % args.checkpoint_every != 0:
-            state_lib.save_checkpoint(args.checkpoint_dir, train_state)
-            print(f"checkpoint saved at step {step}")
+            state_lib.save_checkpoint(args.checkpoint_dir, train_state, mesh=mesh,
+                                              shardings=model.shardings)
+            if main_rank:
+                print(f"checkpoint saved at step {step}")
         logger.close()
-        print(f"done: {step} steps in {time.perf_counter() - t_start:.1f}s "
-              f"(steady-state {timer.mean * 1e3:.0f} ms/step)")
+        if main_rank:
+                print(f"done: {step} steps in {time.perf_counter() - t_start:.1f}s "
+                  f"(steady-state {timer.mean * 1e3:.0f} ms/step)")
         return {"start_step": start_step, "step": step, "history": history,
                 "ms_per_step": timer.mean * 1e3}
     finally:

@@ -3,6 +3,8 @@
 - :func:`trace`: context manager around ``torch.profiler`` (CPU and, when a
   card is present, CUDA activity) that writes a Chrome trace into
   ``log_dir``.
+- :func:`annotate`: a named profiler scope, so that a region (a selective
+  scan, a cross-attention) shows up labelled in the trace.
 - :class:`StepTimer`: wall-clock step timing with a warm-up skip.
 """
 from __future__ import annotations
@@ -27,6 +29,12 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+def annotate(name: str):
+    """Named profiler scope (usable as a context manager or a decorator):
+    ``torch.profiler.record_function``."""
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:

@@ -181,14 +181,16 @@ def test_loader_batches_are_collated_sampler_items(loader_data):
     csv_path, tar_path = loader_data
     got = list(gp.make_grain_loader(VccmTTSDataset(csv_path, tar_path, seed=1), 3, seed=5,
                                     num_epochs=2))
-    assert len(got) == 4  # 7 items: two batches of 3 an epoch, the last item dropped
+    # 14 items in the stream: four batches of 3, the third across the epoch
+    # boundary, the last 2 items dropped
+    assert len(got) == 4
     source = gp._Source(VccmTTSDataset(csv_path, tar_path, seed=1))
     orders = gp.epoch_orders(7, seed=5)
     first, second = next(orders), next(orders)
     assert sorted(first) == list(range(7)) and first != second
+    stream = first + second
     for b, (inputs, target) in enumerate(got):
-        order = first if b < 2 else second
-        idx = order[(b % 2) * 3:(b % 2) * 3 + 3]
+        idx = stream[b * 3:b * 3 + 3]
         want_inputs, want_target = gp._collate([source[i] for i in idx])
         np.testing.assert_array_equal(target, want_target)
         np.testing.assert_array_equal(inputs["voice_waveform"], want_inputs["voice_waveform"])
@@ -197,6 +199,30 @@ def test_loader_batches_are_collated_sampler_items(loader_data):
         assert target.shape[0] == 3 and target.dtype == np.float32
     plain = list(gp.make_grain_loader(VccmTTSDataset(csv_path, tar_path), 3, shuffle=False))
     np.testing.assert_array_equal(plain[0][1], gp._collate([source[i] for i in range(3)])[1])
+
+
+def test_loader_cuts_batches_across_epochs_as_grain_does(tmp_path):
+    """10 items, B = 4, two epochs, no shuffle: one stream of 20 items, 5
+    batches, the third across the epoch boundary, as grain's loader gives
+    (only the stream's last partial batch is dropped; without an end none)."""
+    from mamba_tts_tpu.data.dataset import VccmTTSDataset as JDataset
+    from mamba_tts_tpu.data.grain_pipeline import make_grain_loader as jloader
+
+    csv_path, tar_path = make_synthetic_dataset(str(tmp_path), n_items=10)
+    got = list(gp.make_grain_loader(VccmTTSDataset(csv_path, tar_path), 4, shuffle=False,
+                                    num_epochs=2))
+    want = list(jloader(JDataset(csv_path, tar_path), 4, shuffle=False, num_epochs=2))
+    texts = VccmTTSDataset(csv_path, tar_path)
+    text_of = [texts[i][0]["text_prompt"] for i in range(10)]
+    assert len(got) == len(want) == 5
+    assert got[2][0]["text_prompt"] == [text_of[i] for i in (8, 9, 0, 1)]
+    for (gi, gt), (wi, wt) in zip(got, want):
+        assert list(gi["text_prompt"]) == list(wi["text_prompt"])
+        np.testing.assert_array_equal(gt, np.asarray(wt))
+    endless = gp.make_grain_loader(VccmTTSDataset(csv_path, tar_path), 4, shuffle=False,
+                                   num_epochs=None)
+    stream = [next(endless)[0]["text_prompt"] for _ in range(5)]
+    assert sum(stream, []) == (text_of * 2)[:20]
 
 
 def test_loader_repeats_with_a_seed_and_workers_give_the_same_targets(loader_data):

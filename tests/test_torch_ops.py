@@ -252,13 +252,13 @@ def test_scan_forward_dispatches_to_kernels_on_card(monkeypatch):
     monkeypatch.setattr(ts, "on_card", lambda t: True)
     calls = []
 
-    def fwd(*a):
+    def fwd(*a, **k):  # k: the wrappers' output= (the plain version takes it too)
         calls.append("fwd")
-        return ps.scan_ckpt_ref(*a)[:2]
+        return ps.scan_ckpt_ref(*a, **k)[:2]
 
-    def fwd_ckpt(*a):
+    def fwd_ckpt(*a, **k):
         calls.append("fwd_ckpt")
-        return ps.scan_ckpt_ref(*a)
+        return ps.scan_ckpt_ref(*a, **k)
 
     def bwd(*a):
         calls.append("bwd")

@@ -417,9 +417,13 @@ def test_megakernel_batch_is_chunked(pair, monkeypatch):
 
 @pytest.mark.parametrize("what", ["mesh", "checkpoint", "no_card"])
 def test_unported_paths_raise(what, tmp_path):
-    if what == "mesh":
-        with pytest.raises(NotImplementedError, match="mesh"):
-            load_synthesizer(T_CFG, mesh=object(), device="cpu")
+    if what == "mesh":  # served since parallelism is ported: data-parallel serving needs
+        # one process a rank (torchrun), and a lone process has no process group
+        from mamba_tts_torch.infer.synthesize import main
+
+        with pytest.raises(ValueError, match="one process a rank"):
+            main(["--text", "hi", "--voice_wav", str(tmp_path / "v.wav"), "--dp_serving",
+                  "--device", "cpu"])
     elif what == "checkpoint":  # served since checkpoints are ported: a missing directory
         # gives the seeded init, as in the JAX package
         synth = load_synthesizer(T_CFG, checkpoint_dir=str(tmp_path / "none"), seed=3,

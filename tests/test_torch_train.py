@@ -217,7 +217,9 @@ def test_cli_on_cpu_writes_checkpoints_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--mesh", "4,2"]])
 def test_cli_flags_not_ported_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # ported since parallelism is: --mesh needs one process a rank (torchrun),
+    # and a lone process has no process group
+    with pytest.raises(ValueError, match="one process a rank"):
         _cli(tmp_path, *flag)
 
 
