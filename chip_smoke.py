@@ -1787,28 +1787,39 @@ def phase_style_branch(torch, synth, tmp, steps=5, profiled_steps=2):
     return runs
 
 
-def phase_flagship_step(torch, tmp, steps=3):
-    """Flagship-length training steps: B = 8, 1,024 target frames (Tq = 5,120)
-    and 1,024-frame voice prompts (Tk = 5 x 1,024 + 256), from the port's
-    BatchPreparer over 12.8 s synthetic items; ms per step, target tokens per
-    second, peak memory, calls per step of each training kernel, and the
-    device's idle share and top kernels over one profiled step."""
-    from torch.profiler import ProfilerActivity, profile
-
+def _flagship_batch(torch, tmp, B=8):
+    """The flagship training batch on the card: B = 8, 1,024 target frames
+    (Tq = 5,120) and 1,024-frame voice prompts (Tk = 5 x 1,024 + 256), from
+    the port's BatchPreparer over 12.8 s synthetic items."""
     from mamba_tts_torch.config import TTSConfig
     from mamba_tts_torch.data.dataset import VccmTTSDataset, make_synthetic_dataset
-    from mamba_tts_torch.train import state as state_lib
     from mamba_tts_torch.train import train as tr
     from mamba_tts_torch.train.pipeline import BatchPreparer
 
     cfg = TTSConfig()
-    B = 8
     csv_path, tar_path = make_synthetic_dataset(str(tmp / "flagship"), n_items=B, seconds=12.8)
     inputs, target_wav = next(VccmTTSDataset(csv_path, tar_path, seed=0).batches(B, seed=0))
     batch = tr.batch_to_device(BatchPreparer(cfg, device="cuda")(inputs, target_wav), torch.device("cuda"))
     Q = cfg.decoder.num_quantizers
     check(tuple(batch["target_codec"].shape) == (B, 1024, Q) and tuple(batch["voice_codec"].shape) == (B, 1024, Q),
           f"flagship batch: target {tuple(batch['target_codec'].shape)}, voice {tuple(batch['voice_codec'].shape)}")
+    return batch
+
+
+def phase_flagship_step(torch, batch, steps=3):
+    """Flagship-length training steps on :func:`_flagship_batch`'s batch: ms
+    per step, target tokens per second, peak memory, calls per step of each
+    training kernel, and the device's idle share and top kernels over one
+    profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.train import state as state_lib
+    from mamba_tts_torch.train import train as tr
+
+    cfg = TTSConfig()
+    B = batch["target_codec"].shape[0]
+    Q = cfg.decoder.num_quantizers
     model = _full_model(torch, cfg)
     params = dict(model.named_parameters())
     tx = state_lib.make_optimizer(cfg.train.lr, cfg.train.grad_clip_norm)
@@ -1862,6 +1873,134 @@ def phase_flagship_step(torch, tmp, steps=3):
     for k, n in per_step.items():
         check(n == cfg.decoder.n_layers or k == "selective_scan_fwd",
               f"flagship step: {n} calls of {k} per step, expected {cfg.decoder.n_layers}")
+    return row
+
+
+REMAT_TOL = 1e-5  # relative, per component: remat reruns the same kernels on the same inputs
+
+
+def _grad_diffs(torch, got, want):
+    """Per component (each decoder layer on its own, else the top-level
+    module): the largest |got - want| over the largest |want|, and whether
+    every gradient of it is bit-equal (host tensors)."""
+    groups = {}
+    for n in want:
+        parts = n.split(".")
+        groups.setdefault(".".join(parts[:2]) if n.startswith("decoder.layer_") else parts[0], []).append(n)
+    rows = {}
+    for comp, names in groups.items():
+        d = max(float((got[n] - want[n]).abs().max()) for n in names)
+        m = max(float(want[n].abs().max()) for n in names)
+        rows[comp] = {"rel": d / max(m, 1e-30),
+                      "bit_equal": all(torch.equal(got[n], want[n]) for n in names)}
+    return rows
+
+
+def phase_remat_step(torch, batch, steps=3):
+    """The flagship training step with ``DecoderConfig.remat`` (each decoder
+    layer under ``torch.utils.checkpoint``, recomputed in the backward),
+    beside the same step without it, on the same seeded weights and batch.
+    Each run's first step gives the gradients before the optimizer (the
+    train step's ``out``) and the training kernels' calls; the run without
+    remat takes that step twice from the same state, a witness of how far
+    two runs of one step differ.  Then ``steps`` timed steps with
+    ``torch.cuda.max_memory_allocated()``.  The counts are set to 0 just
+    before the remat run and read just after it.  Checks: losses and every
+    component's gradients within REMAT_TOL relative of the step without
+    remat; per step 2 x n_layers calls of each forward kernel and n_layers
+    of each backward under remat, n_layers of each without; lower peak
+    memory with remat."""
+    import dataclasses
+    import math
+
+    from mamba_tts_torch.config import TTSConfig
+    from mamba_tts_torch.train import state as state_lib
+    from mamba_tts_torch.train import train as tr
+
+    t_phase = time.perf_counter()
+    base = TTSConfig()
+    L = base.decoder.n_layers
+    B, S, Q = batch["target_codec"].shape
+    runs = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base, decoder=dataclasses.replace(base.decoder, remat=remat))
+        model = _full_model(torch, cfg)
+        params = dict(model.named_parameters())
+        tx = state_lib.make_optimizer(cfg.train.lr, cfg.train.grad_clip_norm)
+        step = tr.make_train_step(model, tx)
+        wrappers = _wrappers()
+
+        def first_step():
+            """One step from a fresh state with the counts from 0: (state,
+            losses, gradients before the optimizer on the host, calls)."""
+            for w in wrappers.values():
+                w.launches = 0
+            out = {}
+            st, lo = step(state_lib.create_train_state(params, tx), batch, out=out)
+            return (st, {k: float(v) for k, v in lo.items()},
+                    {n: g.cpu() for n, g in out["grads"].items()},
+                    {k: w.launches for k, w in wrappers.items()})
+
+        if not remat:
+            snapshot = {n: p.detach().clone() for n, p in params.items()}
+            witness_losses, witness_grads = first_step()[1:3]
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(snapshot[n])
+            del snapshot
+        st, losses, grads, per_step = first_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rest = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            st, _ = step(st, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+        runs[remat] = {"ms_per_step": wall * 1e3, "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "resting_gb": rest / 1e9, "kernel_calls_per_step": per_step,
+                       "launches": {k: w.launches for k, w in wrappers.items()},
+                       "losses": losses, "grads": grads}
+        if not remat:
+            runs[remat]["witness"] = {"losses": witness_losses, "grads": witness_grads}
+        del model, params, st, step, tx
+        torch.cuda.empty_cache()
+    plain, rem = runs[False], runs[True]
+
+    def loss_rel(a, b):
+        return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b}
+
+    grad_rel = _grad_diffs(torch, rem["grads"], plain["grads"])
+    witness_rel = _grad_diffs(torch, plain["witness"]["grads"], plain["grads"])
+    row = {"phase": "remat_step", "B": B, "Tq": S * Q, "Tk": S * Q + base.data.max_text_len,
+           "timed_steps": steps,
+           **{f"{k}_{tag}": run[k] for tag, run in (("plain", plain), ("remat", rem))
+              for k in ("ms_per_step", "max_memory_allocated_gb", "resting_gb", "kernel_calls_per_step",
+                        "losses")},
+           "peak_saved_gb": plain["max_memory_allocated_gb"] - rem["max_memory_allocated_gb"],
+           "remat_launches": rem["launches"],
+           "loss_rel_diff": loss_rel(rem["losses"], plain["losses"]),
+           "grad_rel_diff": {c: r["rel"] for c, r in grad_rel.items()},
+           "grads_bit_equal": all(r["bit_equal"] for r in grad_rel.values()),
+           "grad_components_not_bit_equal": [c for c, r in grad_rel.items() if not r["bit_equal"]],
+           "witness_loss_rel_diff": loss_rel(plain["witness"]["losses"], plain["losses"]),
+           "witness_grad_rel_diff": {c: r["rel"] for c, r in witness_rel.items()},
+           "witness_bit_equal": all(r["bit_equal"] for r in witness_rel.values()),
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(row)
+    check(all(math.isfinite(v) for v in rem["losses"].values()), "remat step: non-finite loss")
+    worst = max([*row["loss_rel_diff"].values(), *row["grad_rel_diff"].values()])
+    check(worst <= REMAT_TOL, f"remat step: losses or gradients {worst:.3e} relative from the step "
+                              f"without remat (limit {REMAT_TOL})")
+    for remat, run in runs.items():
+        fwd = 2 * L if remat else L  # under remat the backward reruns each layer's forward
+        want = {"selective_scan_fwd": 0, "selective_scan_fwd_ckpt": fwd, "selective_scan_bwd": L,
+                "flash_attention_fwd": fwd, "flash_attention_bwd": L}
+        check(run["kernel_calls_per_step"] == want,
+              f"remat={remat}: calls in one step {run['kernel_calls_per_step']}, expected {want}")
+    check(rem["max_memory_allocated_gb"] < plain["max_memory_allocated_gb"],
+          f"remat step: peak {rem['max_memory_allocated_gb']:.2f} GB, not below "
+          f"{plain['max_memory_allocated_gb']:.2f} GB without remat")
     return row
 
 
@@ -2086,14 +2225,21 @@ def phase_preprocess(torch, tmp, n_items=32):
     ``ParallelDatasetPreprocessor`` (2 spawned G2P workers, then BERT and
     FACodec in chunks of 16, 4 writer threads).  Checks: each directory
     holds n_items x 4 tensors and the metadata, and their codec ids are
-    equal; items/s of each, its models' construction included and not."""
+    equal; items/s of each, its models' construction included and not.
+    First ``tools/wavmax`` finds the corpus's longest WAV (each item 0.4 s)."""
     import numpy as np
 
     from mamba_tts_torch.data.dataset import make_synthetic_dataset
     from mamba_tts_torch.data.preprocess import DatasetPreprocessor
     from mamba_tts_torch.data.preprocess_parallel import ParallelDatasetPreprocessor
+    from mamba_tts_torch.tools.wavmax import longest_wav_in_tar
 
     csv_path, tar_path = make_synthetic_dataset(str(tmp / "corpus"), n_items=n_items)
+    t0 = time.perf_counter()
+    longest, seconds = longest_wav_in_tar(tar_path)
+    wavmax = {"name": longest, "seconds": seconds, "ms": (time.perf_counter() - t0) * 1e3}
+    check(longest is not None and longest.endswith(".wav") and abs(seconds - 0.4) < 0.01,
+          f"wavmax: {wavmax}, expected a 0.4 s .wav")
     dirs = {"sequential": tmp / "prep_seq", "parallel": tmp / "prep_par"}
     t0 = time.perf_counter()
     seq = DatasetPreprocessor(str(dirs["sequential"]), [tar_path], device="cuda")
@@ -2122,7 +2268,7 @@ def phase_preprocess(torch, tmp, n_items=32):
                           "items_per_s_with_build": n_items / (t2 - t0)},
            "parallel": {"seconds": t4 - t3, "items_per_s_with_build": n_items / (t4 - t3),
                         "cpu_workers": 2, "gpu_batch_size": 16},
-           "codec_files_equal": equal}
+           "codec_files_equal": equal, "wavmax": wavmax}
     emit(row)
     check(n_seq == n_par == n_items, f"preprocessed {n_seq} and {n_par} of {n_items} items")
     check(equal == n_items, f"codec ids differ between the preprocessors: {equal} of {n_items} equal")
@@ -2666,13 +2812,19 @@ def main():
         ck_launches = phase_checkpoint_serving(torch, tmp, voice)
         released_launches = phase_released_weights(torch, tmp, voice)
         torch.cuda.empty_cache()
-        phase_flagship_step(torch, tmp)
+        flagship_batch = _flagship_batch(torch, tmp)
+        phase_flagship_step(torch, flagship_batch)
         phase_style_branch(torch, synth_none, tmp)
     del synth_none
     train_launches = {k: w.launches for k, w in wrappers.items()}
     emit({"phase": "training_main_path", "launches": train_launches})
     for k, n in train_launches.items():
         check(n > 0, f"{k} was not launched on the main path")
+    torch.cuda.empty_cache()
+    # the flagship step under remat beside the same step without it (its own
+    # counts, set to 0 just before the remat run)
+    remat_launches = phase_remat_step(torch, flagship_batch)["remat_launches"]
+    del flagship_batch
     torch.cuda.empty_cache()
 
     # codec training, then preprocessing and training from preprocessed data
@@ -2732,6 +2884,7 @@ def main():
         "launches": train_launches[k], **train_rows[k],
         "preprocessed_launches": prep_launches[k], "grain_loader_launches": loader_launches[k],
         "parallel_launches": par_launches[k],
+        **({"remat_launches": remat_launches[k]} if k in TRAIN_PATH_KERNELS else {}),
     } for k in TRAIN_KERNELS], "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

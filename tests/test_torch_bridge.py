@@ -143,13 +143,29 @@ def test_bridge_imports_no_jax():
         "audio/mel", "audio/preprocess", "models/discriminator", "train/train_codec",
         "data/preprocess", "data/preprocess_parallel", "data/grain_pipeline",
         "parallel/distributed", "parallel/mesh", "parallel/comm", "parallel/sp_scan",
-        "parallel/dryrun", "tools/parity_check")} <= walked
+        "parallel/dryrun", "tools/parity_check", "tools/wavmax", "tools/train_lts",
+        "tools/gen_manifests", "tools/facodec_replicas")} <= walked
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if isinstance(node, ast.ImportFrom):  # ``from tests import test_x`` too
+                names += [a.name for a in node.names]
+            if isinstance(node, ast.Call):  # importlib.import_module / __import__ by name
+                f = node.func
+                if (f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")) in (
+                        "import_module", "__import__"):
+                    names += [a.value for a in node.args
+                              if isinstance(a, ast.Constant) and isinstance(a.value, str)]
+            # no module of the port reaches into tests/ through sys.path
+            changed = ([node.func] if isinstance(node, ast.Call)
+                       else node.targets if isinstance(node, ast.Assign)
+                       else [node.target] if isinstance(node, ast.AugAssign) else [])
+            assert not any(ast.unparse(t).startswith("sys.path") for t in changed), (
+                path, node.lineno, "sys.path changed")
             for n in names:
                 assert n.split(".")[0] not in ("jax", "flax", "optax", "orbax", "grain",
-                                               "mamba_tts_tpu"), (
+                                               "mamba_tts_tpu", "tests"), (
                     path, n)
+                assert not n.split(".")[-1].startswith("test_"), (path, n)
     assert torch.is_tensor(torch.zeros(1))

@@ -289,3 +289,68 @@ def test_decoder_remat_gives_the_same_gradients():
     torch.testing.assert_close(grads[0][0], grads[1][0])
     for a, b in zip(grads[0][1], grads[1][1]):
         torch.testing.assert_close(a, b)
+
+
+def test_decoder_remat_through_the_card_branch(monkeypatch):
+    """``remat`` on the card branch (``on_card`` stubbed; each kernel wrapper
+    replaced by its plain version with a call count, the scan's after the
+    kernels' own argument check): the backward recomputes each layer's
+    checkpointing scan forward and flash forward, which the non-reentrant
+    checkpoint holds to the first forward's saved tensors, so each forward
+    runs 2 x n_layers times and each backward n_layers times; outputs and
+    gradients equal the run without remat."""
+    import dataclasses
+
+    from mamba_tts_torch.models import attention as t_attention
+    from mamba_tts_torch.ops import flash_attention as fa
+    from mamba_tts_torch.ops import pallas_scan as ps
+    from mamba_tts_torch.ops import selective_scan as ts
+
+    calls = {}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return wrapper
+
+    def scan_fwd_ckpt(u, delta, A, B, C, D, h0=None, chunk=ps.CHUNK, output=True):
+        ps.check_scan_args(u, delta, A, B, C, chunk, D=D, h0=h0)
+        return ps.scan_ckpt_ref(u, delta, A, B, C, D, h0, chunk, output=output)
+
+    def flash_bwd(q, K, V, mask, O, lse, dO, scale):
+        leaves = [t.detach().requires_grad_() for t in (q, K, V)]
+        with torch.enable_grad():
+            fa.flash_attention_ref(*leaves, mask, scale).backward(dO)
+        return tuple(t.grad for t in leaves)
+
+    for mod in (ts, t_attention):
+        monkeypatch.setattr(mod, "on_card", lambda t: True)
+    def no_plain_forward(*a, **k):
+        raise AssertionError("the forward without checkpoints ran under a gradient")
+
+    monkeypatch.setattr(ps, "selective_scan_fwd", no_plain_forward)
+    monkeypatch.setattr(ps, "selective_scan_fwd_ckpt", counted("selective_scan_fwd_ckpt", scan_fwd_ckpt))
+    monkeypatch.setattr(ps, "selective_scan_bwd", counted("selective_scan_bwd", ps.scan_bwd_ref))
+    monkeypatch.setattr(fa, "flash_attention_fwd", counted("flash_attention_fwd", lambda q, K, V, m, s: (
+        fa.flash_attention_ref(q, K, V, m, s), torch.zeros(q.shape[:3]))))
+    monkeypatch.setattr(fa, "flash_attention_bwd", counted("flash_attention_bwd", flash_bwd))
+
+    cfg = tconfig.from_json(open(SMOKE).read()).decoder.with_mamba_dims()
+    rng = np.random.default_rng(9)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab_size_audio, (2, 5, 26)))  # Tq = 130 >= 128
+    th = torch.from_numpy(rng.standard_normal((2, 7, cfg.d_model)).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal((2, cfg.d_style)).astype(np.float32))
+    runs, L = [], cfg.n_layers
+    for remat in (False, True):
+        calls.clear()
+        dec = seed_init(MambaTTSDecoder(dataclasses.replace(cfg, remat=remat)), 0)
+        out = dec(tokens, th, z)
+        out.square().mean().backward()
+        k = 2 if remat else 1
+        assert calls == {"selective_scan_fwd_ckpt": k * L, "flash_attention_fwd": k * L,
+                         "selective_scan_bwd": L, "flash_attention_bwd": L}, (remat, calls)
+        runs.append((out.detach(), [p.grad.clone() for p in dec.parameters()]))
+    torch.testing.assert_close(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        torch.testing.assert_close(a, b)
