@@ -280,8 +280,10 @@ def phase_build():
 
 def _device_kernels(prof):
     """The profiler's device rows: an operator's row repeats the time of the
-    kernels it launched, so only these are summed."""
-    return [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels it launched, so only these are summed.  The device side of a
+    named range (the program's spans) is no kernel."""
+    return [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def _dev_us(e):
@@ -1082,7 +1084,7 @@ def phase_megakernel_times(torch, synth, voice, frames=1024):
         synth.synthesize(TEXT, STYLE, voice, frames=frames)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels = _device_kernels(prof)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -1843,7 +1845,7 @@ def phase_flagship_step(torch, batch, steps=3):
         st, _ = step(st, batch)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels = _device_kernels(prof)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)

@@ -38,10 +38,12 @@ from mamba_tts_torch.models.decoder import (
     decode_step_,
     init_carry,
     run_captured,
+    run_eager,
 )
 from mamba_tts_torch.models.mamba import MambaState
 from mamba_tts_torch.ops.int8_matvec import int8_matvec, quantize_weight
 from mamba_tts_torch.ops.selective_scan import selective_scan_step
+from mamba_tts_torch.utils.profiling import annotate
 
 F32 = torch.float32
 
@@ -224,11 +226,13 @@ def greedy_decode_int8(
     c = decoder.cfg
     B = text_hidden.shape[0]
     total = c.num_quantizers * frames_per_stream
-    KV, memory_mask, films = decoder.project_memories(
-        text_hidden, text_mask, ref_hidden, ref_mask, z_style)
-    if int8_kv:
-        KV = quantize_kv(KV)
-    carry = init_carry(c, B, total, decoder.dtype, text_hidden.device, collect_logits)
+    with annotate("decode.memory"):
+        KV, memory_mask, films = decoder.project_memories(
+            text_hidden, text_mask, ref_hidden, ref_mask, z_style)
+        if int8_kv:
+            KV = quantize_kv(KV)
+    with annotate("decode.plan"):
+        carry = init_carry(c, B, total, decoder.dtype, text_hidden.device, collect_logits)
 
     def step(token, states, index):
         return quant_step_with_kv(qparams, c, token, KV, memory_mask, films, states, index,
@@ -241,8 +245,7 @@ def greedy_decode_int8(
         run_captured(step_fn, total, generator if temperature > 0.0 else None,
                      counters=(int8_matvec,))
     else:
-        for _ in range(total):
-            step_fn()
+        run_eager(step_fn, total)
     logits = (carry.logits if collect_logits
               else torch.zeros((B, 0), device=text_hidden.device))
     return DecodeResult(tokens=carry.tokens, logits=logits)

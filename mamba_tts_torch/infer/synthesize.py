@@ -70,6 +70,7 @@ from mamba_tts_torch.parallel.distributed import rank_mesh
 from mamba_tts_torch.parallel.mesh import axis_group, axis_rank, axis_size
 from mamba_tts_torch.text.processor import PhonemeFrontend
 from mamba_tts_torch.train import state as state_lib
+from mamba_tts_torch.utils.profiling import annotate
 
 # Steps per grid step of the TPU megakernel; the Hopper kernel loops over the
 # steps itself, so the value is only validated and results do not depend on it.
@@ -148,17 +149,19 @@ class Synthesizer:
         token ids on the device.  ``generator`` draws the style sample and,
         when ``temperature > 0``, the tokens."""
         model = self.model
-        text_hidden = model.encode_text(phoneme_ids, text_mask)
-        z_style = model.sample_style(style_bert, generator)
-        ref_hidden, ref_mask = model.embed_voice(voice_codec)
+        with annotate("synth.condition"):
+            text_hidden = model.encode_text(phoneme_ids, text_mask)
+            z_style = model.sample_style(style_bert, generator)
+            ref_hidden, ref_mask = model.embed_voice(voice_codec)
         kw = dict(text_mask=text_mask, ref_hidden=ref_hidden, ref_mask=ref_mask,
                   temperature=temperature, generator=generator)
         mega = None
         if self.quant == "megakernel":
-            mega = _megakernel_dtypes(
-                self.decoder.cfg, phoneme_ids.shape[0],
-                ref_hidden.shape[1] + text_hidden.shape[1], sampled=temperature > 0,
-                unroll_steps=_MEGAKERNEL_UNROLL)
+            with annotate("decode.plan"):
+                mega = _megakernel_dtypes(
+                    self.decoder.cfg, phoneme_ids.shape[0],
+                    ref_hidden.shape[1] + text_hidden.shape[1], sampled=temperature > 0,
+                    unroll_steps=_MEGAKERNEL_UNROLL)
         if self.quant == "none":
             res = greedy_decode(self.decoder, text_hidden, z_style, frames, **kw)
         elif mega is not None:
@@ -197,7 +200,8 @@ class Synthesizer:
                 fresh.append(v)
                 fresh_idx.append(i)
         if fresh:
-            codec, _, fresh_lens = self.tokenizer.encode_with_lengths(fresh)
+            with annotate("synth.voice_encode", rows=len(fresh)):
+                codec, _, fresh_lens = self.tokenizer.encode_with_lengths(fresh)
             for j, i in enumerate(fresh_idx):
                 rows[i] = np.asarray(codec[j])
                 lens[i] = int(fresh_lens[j])
@@ -225,6 +229,7 @@ class Synthesizer:
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    @annotate("synth.decode")
     def _decode_rows(self, arrays, frames: int, temperature: float, generator) -> np.ndarray:
         """Decode rows at one frame budget; (B, Q*frames) tokens on the host.
         The megakernel takes at most ``megakernel_max_batch`` rows at this
@@ -260,24 +265,29 @@ class Synthesizer:
         tokens = _run_chunked(run, mine, gen, chunk)
         return comm.gather(tokens, 0, axis_group(self.mesh, "data"))[:B].cpu().numpy()
 
+    @annotate("synth.request")
     def synthesize(self, text: str, style_prompt: str, voice_wav, frames: Optional[int] = None,
                    temperature: float = 0.0, seed: int = 0) -> Tuple[np.ndarray, dict]:
         """Returns (waveform (T,) float32 at 16 kHz, info).  ``voice_wav`` is
         a waveform array, a WAV path or a :meth:`register_voice` name."""
         t0 = time.perf_counter()
-        phoneme_ids, _, text_mask = self.frontend.encode_batch(
-            [text], pad_to=self.cfg.data.max_text_len)
-        style_bert = self.style_encoder.embed([style_prompt])
+        with annotate("synth.g2p"):
+            phoneme_ids, _, text_mask = self.frontend.encode_batch(
+                [text], pad_to=self.cfg.data.max_text_len)
+        with annotate("synth.bert"):
+            style_bert = self.style_encoder.embed([style_prompt])
         voice_codec = self._encode_voice([voice_wav])
         if frames is None:
-            frames = self.predict_frames(phoneme_ids, text_mask)
+            with annotate("synth.durations"):
+                frames = self.predict_frames(phoneme_ids, text_mask)
         frames = self._bucket(frames)
         ids, mask, voice = self._tensors(phoneme_ids, text_mask, voice_codec)
         tokens = self._decode_rows((ids, mask, style_bert, voice), frames, temperature,
                                    self._generator(seed))
         Q = self.cfg.decoder.num_quantizers
         codec = tokens.reshape(1, Q, frames).transpose(0, 2, 1)
-        wav = self.tokenizer.decode(codec)[0]
+        with annotate("synth.codec_decode"):
+            wav = self.tokenizer.decode(codec)[0]
         wall = time.perf_counter() - t0
         audio_seconds = frames / self.tokenizer.frames_per_second
         info = {
@@ -289,6 +299,7 @@ class Synthesizer:
         }
         return wav, info
 
+    @annotate("synth.request")
     def synthesize_batch(self, texts, style_prompts, voice_wavs, frames: Optional[int] = None,
                          temperature: float = 0.0, seed: int = 0,
                          variable_length: bool = False):
@@ -303,9 +314,11 @@ class Synthesizer:
         if not len(texts) == len(style_prompts) == len(voice_wavs):
             raise ValueError("texts, style_prompts and voice_wavs differ in length")
         t0 = time.perf_counter()
-        phoneme_ids, _, text_mask = self.frontend.encode_batch(
-            list(texts), pad_to=self.cfg.data.max_text_len)
-        style_bert = self.style_encoder.embed(list(style_prompts))
+        with annotate("synth.g2p"):
+            phoneme_ids, _, text_mask = self.frontend.encode_batch(
+                list(texts), pad_to=self.cfg.data.max_text_len)
+        with annotate("synth.bert"):
+            style_bert = self.style_encoder.embed(list(style_prompts))
         voice_codec = self._encode_voice(list(voice_wavs))
         B = len(texts)
         Q = self.cfg.decoder.num_quantizers
@@ -314,7 +327,8 @@ class Synthesizer:
         generator = self._generator(seed)
 
         if variable_length:
-            per_utt = self.predict_frames_per_utterance(phoneme_ids, text_mask)
+            with annotate("synth.durations"):
+                per_utt = self.predict_frames_per_utterance(phoneme_ids, text_mask)
             if frames is not None:
                 per_utt = np.minimum(per_utt, int(frames))
                 buckets = np.full(B, self._bucket(frames))
@@ -328,7 +342,8 @@ class Synthesizer:
                 tokens = self._decode_rows(tuple(a[sel] for a in arrays), bucket, temperature,
                                            generator)
                 codec = tokens.reshape(len(idx), Q, bucket).transpose(0, 2, 1)
-                group_wavs = self.tokenizer.decode(codec)
+                with annotate("synth.codec_decode"):
+                    group_wavs = self.tokenizer.decode(codec)
                 for row, i in enumerate(idx):
                     wavs[int(i)] = group_wavs[row][: int(per_utt[i]) * self.tokenizer.hop]
                 total_tokens += len(idx) * Q * bucket
@@ -344,11 +359,13 @@ class Synthesizer:
             return wavs, info
 
         if frames is None:
-            frames = self.predict_frames(phoneme_ids, text_mask)
+            with annotate("synth.durations"):
+                frames = self.predict_frames(phoneme_ids, text_mask)
         frames = self._bucket(frames)
         tokens = self._decode_rows(arrays, frames, temperature, generator)
         codec = tokens.reshape(B, Q, frames).transpose(0, 2, 1)
-        wavs = self.tokenizer.decode(codec)
+        with annotate("synth.codec_decode"):
+            wavs = self.tokenizer.decode(codec)
         wall = time.perf_counter() - t0
         info = {
             "frames": frames,

@@ -46,6 +46,7 @@ from mamba_tts_torch.models.layers import Dense, Embed, LayerNorm, parse_dtype, 
 from mamba_tts_torch.models.mamba import MambaBlock, MambaState, init_mamba_state
 from mamba_tts_torch.parallel.comm import copy_to_group
 from mamba_tts_torch.parallel.mesh import axis_size, model_group
+from mamba_tts_torch.utils.profiling import annotate, count
 
 
 class DecoderLayer(nn.Module):
@@ -303,30 +304,43 @@ def run_captured(step_fn, total: int, generator: Optional[torch.Generator] = Non
 
     ``counters`` are kernel wrappers whose ``launches`` count executions:
     the calls made while capturing are taken back, and each replay adds the
-    graph's count."""
+    graph's count.  Traced: the warm-up and the capture are the span
+    ``decode.capture`` (each capture counts one ``decode.graph_captures``),
+    the replays ``decode.run``."""
     warm, r = graph_split(total, steps_per_graph)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warm):
-            step_fn()
-    torch.cuda.current_stream().wait_stream(side)
-    if r == 0:
-        return
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
-    before = [c.launches for c in counters]
-    with torch.cuda.graph(graph):
-        for _ in range(steps_per_graph):
-            step_fn()
+    with annotate("decode.capture"):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(warm):
+                step_fn()
+        torch.cuda.current_stream().wait_stream(side)
+        if r == 0:
+            return
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        before = [c.launches for c in counters]
+        with torch.cuda.graph(graph):
+            for _ in range(steps_per_graph):
+                step_fn()
+        count("decode.graph_captures")
     per_graph = [c.launches - b for c, b in zip(counters, before)]
     for c, b in zip(counters, before):
         c.launches = b
-    for _ in range(r):
-        graph.replay()
+    with annotate("decode.run", device_time=True, steps=steps_per_graph * r, path="graph"):
+        for _ in range(r):
+            graph.replay()
     for c, n in zip(counters, per_graph):
         c.launches += n * r
+
+
+def run_eager(step_fn, total: int) -> None:
+    """Run ``step_fn`` ``total`` times in a host loop (the decode off the
+    card), traced as ``decode.run``."""
+    with annotate("decode.run", device_time=True, steps=total, path="eager"):
+        for _ in range(total):
+            step_fn()
 
 
 @torch.no_grad()
@@ -352,9 +366,11 @@ def greedy_decode(
     B = text_hidden.shape[0]
     Q = num_streams if num_streams is not None else c.num_quantizers
     total = Q * frames_per_stream
-    KV, memory_mask, films = decoder.project_memories(
-        text_hidden, text_mask, ref_hidden, ref_mask, z_style)
-    carry = init_carry(c, B, total, decoder.dtype, text_hidden.device, collect_logits)
+    with annotate("decode.memory"):
+        KV, memory_mask, films = decoder.project_memories(
+            text_hidden, text_mask, ref_hidden, ref_mask, z_style)
+    with annotate("decode.plan"):
+        carry = init_carry(c, B, total, decoder.dtype, text_hidden.device, collect_logits)
 
     def step(token, states, index):
         return decoder.step_with_kv(token, KV, memory_mask, films, states, index,
@@ -366,8 +382,7 @@ def greedy_decode(
     if on_card(text_hidden):
         run_captured(step_fn, total, generator if temperature > 0.0 else None)
     else:
-        for _ in range(total):
-            step_fn()
+        run_eager(step_fn, total)
     logits = (carry.logits if collect_logits
               else torch.zeros((B, 0), device=text_hidden.device))
     return DecodeResult(tokens=carry.tokens, logits=logits)

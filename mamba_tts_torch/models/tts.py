@@ -38,6 +38,7 @@ from mamba_tts_torch.models.style import StyleConditioningPipeline
 from mamba_tts_torch.models.text_encoder import DurationPredictor, TextEncoder, duration_loss
 from mamba_tts_torch.parallel.comm import global_mean
 from mamba_tts_torch.parallel.mesh import axis_group, axis_size, param_shardings
+from mamba_tts_torch.utils.profiling import annotate
 
 
 def heuristic_durations(text_mask: torch.Tensor, target_frames: torch.Tensor) -> torch.Tensor:
@@ -103,36 +104,41 @@ class MambaTTS(nn.Module):
         phoneme_ids, text_mask = batch["phoneme_ids"], batch["text_mask"]
         B = phoneme_ids.shape[0]
 
-        text_hidden = self.text_encoder(phoneme_ids, text_mask, deterministic, generator)
+        with annotate("train.text_encoder"):
+            text_hidden = self.text_encoder(phoneme_ids, text_mask, deterministic, generator)
 
         # SMSD: NLL against the speaker embeddings, and a sampled style that
         # carries no gradient.
-        loss_smsd = self.smsd.loss(batch["style_bert"], batch["spk_embs"], deterministic, generator,
-                                   group=self.dp_group)
-        with torch.no_grad():
-            pi, mu, sigma = self.smsd(batch["style_bert"])
-            z_style = sample_mixture(pi, mu, sigma, c.smsd.variance_mode, c.smsd.fixed_std,
-                                     generator=generator, k=style_k, eps=style_eps)
+        with annotate("train.smsd"):
+            loss_smsd = self.smsd.loss(batch["style_bert"], batch["spk_embs"], deterministic,
+                                       generator, group=self.dp_group)
+            with torch.no_grad():
+                pi, mu, sigma = self.smsd(batch["style_bert"])
+                z_style = sample_mixture(pi, mu, sigma, c.smsd.variance_mode, c.smsd.fixed_std,
+                                         generator=generator, k=style_k, eps=style_eps)
 
-        log_dur = self.dur_predictor(text_hidden, text_mask, deterministic, generator)
-        dur_target = heuristic_durations(text_mask, batch["target_frames"])
-        loss_dur = duration_loss(log_dur, dur_target, text_mask, group=self.dp_group)
+        with annotate("train.duration"):
+            log_dur = self.dur_predictor(text_hidden, text_mask, deterministic, generator)
+            dur_target = heuristic_durations(text_mask, batch["target_frames"])
+            loss_dur = duration_loss(log_dur, dur_target, text_mask, group=self.dp_group)
 
-        # voice prompt -> reference conditioning
-        ref_hidden, ref_mask = self.embed_voice(batch["voice_codec"])
+        with annotate("train.decoder"):
+            # voice prompt -> reference conditioning
+            ref_hidden, ref_mask = self.embed_voice(batch["voice_codec"])
 
-        # shifted teacher forcing over the flattened codec grid
-        target_3d = batch["target_codec"].transpose(1, 2)  # (B, Q, S)
-        Q, S = target_3d.shape[1], target_3d.shape[2]
-        targets = target_3d.reshape(B, Q * S).long()
-        inputs = torch.cat([torch.full((B, 1), dec_cfg.bos_id, dtype=targets.dtype,
-                                       device=targets.device), targets[:, :-1]], dim=1)
-        dev = targets.device
-        quant_ids = torch.arange(Q, device=dev).repeat_interleave(S)[None]
-        pos_ids = torch.arange(S, device=dev).repeat(Q)[None]
-        logits = self.decoder(inputs, text_hidden, z_style, text_mask, ref_hidden, ref_mask,
-                              quant_ids=quant_ids, pos_ids=pos_ids)
-        loss_codec = codec_ce_loss(logits, targets, pad_id=dec_cfg.pad_id, group=self.dp_group)
+            # shifted teacher forcing over the flattened codec grid
+            target_3d = batch["target_codec"].transpose(1, 2)  # (B, Q, S)
+            Q, S = target_3d.shape[1], target_3d.shape[2]
+            targets = target_3d.reshape(B, Q * S).long()
+            inputs = torch.cat([torch.full((B, 1), dec_cfg.bos_id, dtype=targets.dtype,
+                                           device=targets.device), targets[:, :-1]], dim=1)
+            dev = targets.device
+            quant_ids = torch.arange(Q, device=dev).repeat_interleave(S)[None]
+            pos_ids = torch.arange(S, device=dev).repeat(Q)[None]
+            logits = self.decoder(inputs, text_hidden, z_style, text_mask, ref_hidden, ref_mask,
+                                  quant_ids=quant_ids, pos_ids=pos_ids)
+            loss_codec = codec_ce_loss(logits, targets, pad_id=dec_cfg.pad_id,
+                                       group=self.dp_group)
 
         if use_nar_branch:
             self.style_pipe(text_hidden, z_style, torch.exp(log_dur).detach(), text_mask,

@@ -51,6 +51,7 @@ import torch
 from mamba_tts_torch.config import DecoderConfig
 from mamba_tts_torch.device import on_card
 from mamba_tts_torch.models.decoder import DecodeResult, MambaTTSDecoder
+from mamba_tts_torch.utils.profiling import annotate
 
 BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
 
@@ -1067,7 +1068,9 @@ def megakernel_greedy_decode(
     row per step.  The noise is one (total, B, Vpad) draw from ``generator``
     or, for tests that feed both packages the same numbers, the standard
     Gumbel draws handed in as ``gumbel``.  ``forced_tokens`` (total,) or
-    (B, total) switches to teacher forcing.
+    (B, total) switches to teacher forcing.  Traced on the card, the launch
+    (span ``decode.run``) also writes the kernel's stage stamps of the
+    middle step (``stage_clocks``), kept as the span's attribute.
     """
     c = decoder.cfg
     B = text_hidden.shape[0]
@@ -1075,25 +1078,33 @@ def megakernel_greedy_decode(
     while total % unroll_steps:  # largest feasible unroll <= requested
         unroll_steps -= 1
 
-    KV, memory_mask, films = decoder.project_memories(
-        text_hidden, text_mask, ref_hidden, ref_mask, z_style)
-    plan = _build_plan(c, qparams, KV, memory_mask, films, frames_per_stream,
-                       weight_dtype=weight_dtype, kv_dtype=kv_dtype, weight_plan=weight_plan)
-    Vpad = plan.token_embed.shape[0]
-    dev = text_hidden.device
-    forced = None
-    if forced_tokens is not None:
-        ft = torch.atleast_2d(torch.as_tensor(forced_tokens, device=dev))  # (B, total)
-        forced = ft.T.expand(total, B).to(torch.int32).contiguous()
-    noise = None
-    if temperature > 0.0:
-        if gumbel is None:
-            if generator is None:
-                raise ValueError("temperature > 0 requires a generator (or gumbel noise)")
-            gumbel = gumbel_noise((total, B, Vpad), generator, dev)
-        noise = temperature * gumbel.to(device=dev, dtype=F32)
-    logits = _megakernel_call(c, plan, frames_per_stream, forced, unroll_steps=unroll_steps,
-                              gumbel=noise).logits  # (total, B, Vpad)
+    with annotate("decode.memory"):
+        KV, memory_mask, films = decoder.project_memories(
+            text_hidden, text_mask, ref_hidden, ref_mask, z_style)
+    with annotate("decode.plan"):
+        plan = _build_plan(c, qparams, KV, memory_mask, films, frames_per_stream,
+                           weight_dtype=weight_dtype, kv_dtype=kv_dtype, weight_plan=weight_plan)
+        Vpad = plan.token_embed.shape[0]
+        dev = text_hidden.device
+        forced = None
+        if forced_tokens is not None:
+            ft = torch.atleast_2d(torch.as_tensor(forced_tokens, device=dev))  # (B, total)
+            forced = ft.T.expand(total, B).to(torch.int32).contiguous()
+        noise = None
+        if temperature > 0.0:
+            if gumbel is None:
+                if generator is None:
+                    raise ValueError("temperature > 0 requires a generator (or gumbel noise)")
+                gumbel = gumbel_noise((total, B, Vpad), generator, dev)
+            noise = temperature * gumbel.to(device=dev, dtype=F32)
+    with annotate("decode.run", device_time=True, steps=total, path="megakernel") as span:
+        clocks = None
+        if span is not None and on_card(plan.K):
+            # torch.empty launches no kernel; the launch writes every stamp
+            clocks = span.attrs["stage_clocks"] = torch.empty(
+                stage_clock_count(c), dtype=torch.int64, device=dev)
+        logits = _megakernel_call(c, plan, frames_per_stream, forced, unroll_steps=unroll_steps,
+                                  gumbel=noise, stage_clocks=clocks).logits  # (total, B, Vpad)
     choice = logits if noise is None else logits + noise
     tokens = torch.argmax(choice, dim=2).T.contiguous()  # (B, total)
     if collect_logits:

@@ -65,6 +65,7 @@ from mamba_tts_torch.parallel.mesh import (
     shard_params,
 )
 from mamba_tts_torch.train import state as state_lib
+from mamba_tts_torch.utils.profiling import annotate
 
 _SEED_MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant: (seed, step) -> generator seed
 _STREAM_MIX = 0xC2B2AE3D27D4EB4F  # another: one stream per rank
@@ -127,10 +128,11 @@ def sync_gradients(grads: Dict[str, torch.Tensor], group) -> None:
     all-reduce over all of them)."""
     if comm.group_size(group) == 1:
         return
-    ts = list(grads.values())
-    flat = comm.all_reduce_(torch.cat([t.reshape(-1) for t in ts]), group)
-    for t, part in zip(ts, flat.split([t.numel() for t in ts])):
-        t.copy_(part.view_as(t))
+    with annotate("train.grad_sync"):
+        ts = list(grads.values())
+        flat = comm.all_reduce_(torch.cat([t.reshape(-1) for t in ts]), group)
+        for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+            t.copy_(part.view_as(t))
 
 
 def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -158,9 +160,14 @@ def make_train_step(model: MambaTTS, tx: state_lib.Optimizer, seed: int = 0,
     update.  ``kw`` go to ``compute_losses`` (``deterministic``,
     ``style_k``, ``style_eps``).  A dict ``out`` receives the step's
     gradients after the data-parallel sum (``grads``, this rank's shards)
-    and their global norm before clipping (``norm``)."""
+    and their global norm before clipping (``norm``).  Traced, a step is the
+    span ``train.step`` over ``train.forward``, ``train.backward`` and
+    ``train.optimizer`` (the gradient dict, the data-parallel sum
+    ``train.grad_sync`` on a mesh, the norm, the clip and Adam), each timed
+    on the device too."""
     dp_group = axis_group(mesh, "data")
 
+    @annotate("train.step")
     def train_step(st: state_lib.TrainState, batch: Dict[str, torch.Tensor],
                    out: Optional[Dict[str, Any]] = None, **kw):
         device = next(iter(st.params.values())).device
@@ -169,13 +176,16 @@ def make_train_step(model: MambaTTS, tx: state_lib.Optimizer, seed: int = 0,
         gen, shard_gen = step_generators(seed, st.step, device, mesh)
         kw = {"deterministic": False, "generator": gen, "shard_generator": shard_gen,
               "use_nar_branch": use_nar_branch, **kw}
-        losses = model.compute_losses(batch, **kw)
-        losses["loss_total"].backward()
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in st.params.items()}
-        sync_gradients(grads, dp_group)
-        norm = tx.global_norm(list(grads), list(grads.values()))
-        opt_state = tx.apply(st.params, grads, st.opt_state, norm=norm)
+        with annotate("train.forward", device_time=True):
+            losses = model.compute_losses(batch, **kw)
+        with annotate("train.backward", device_time=True):
+            losses["loss_total"].backward()
+        with annotate("train.optimizer", device_time=True):
+            grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                     for n, p in st.params.items()}
+            sync_gradients(grads, dp_group)
+            norm = tx.global_norm(list(grads), list(grads.values()))
+            opt_state = tx.apply(st.params, grads, st.opt_state, norm=norm)
         for p in st.params.values():
             p.grad = None
         if out is not None:

@@ -3,16 +3,14 @@
 ``torch.utils.tensorboard`` where that is installed.
 
 The reference logs with bare ``print`` (reference: train.py:237-241) — here
-metrics are structured: per-step JSON lines to stdout and/or a file, moving
-averages, throughput (tokens/sec) and RTF, with an optional TensorBoard
+metrics are structured: per-step JSON lines to stdout and/or a file, with
+the step time and throughput (tokens/sec), and an optional TensorBoard
 writer.
 """
 from __future__ import annotations
 
 import json
 import time
-from collections import deque
-from pathlib import Path
 from typing import Dict, Optional
 
 
@@ -21,7 +19,6 @@ class MetricsLogger:
         self,
         log_file: Optional[str] = None,
         tensorboard_dir: Optional[str] = None,
-        window: int = 50,
         stdout: bool = True,
     ):
         self.stdout = stdout
@@ -34,8 +31,6 @@ class MetricsLogger:
                 SummaryWriter = None
             if SummaryWriter is not None:
                 self._tb = SummaryWriter(tensorboard_dir)
-        self._windows: Dict[str, deque] = {}
-        self._window = window
         self._t_last: Optional[float] = None
 
     def log(self, step: int, metrics: Dict[str, float], tokens: Optional[int] = None):
@@ -47,11 +42,6 @@ class MetricsLogger:
             if tokens:
                 record["tokens_per_sec"] = round(tokens / dt, 1)
         self._t_last = now
-        for k, v in record.items():
-            if k == "step":
-                continue
-            w = self._windows.setdefault(k, deque(maxlen=self._window))
-            w.append(v)
         line = json.dumps(record)
         if self.stdout:
             print(line, flush=True)
@@ -62,10 +52,6 @@ class MetricsLogger:
             for k, v in record.items():
                 if k != "step":
                     self._tb.add_scalar(k, v, global_step=step)
-
-    def mean(self, key: str) -> Optional[float]:
-        w = self._windows.get(key)
-        return (sum(w) / len(w)) if w else None
 
     def close(self):
         if self._file:
