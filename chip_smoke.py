@@ -16,6 +16,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              weight stream cold in L2 (rotating copies) and hot; one
              torch.profiler window over one call of every case must show one
              device kernel per call.
+2b. decode attention — ``decode_attention`` (the default decode's one-query
+             cross-attention) against its plain version ``decode_attention_ref``
+             on the card at the narration batch (B=8, H=8, Tm=1,536, a ragged
+             mask), at B=1 on the same memory, and on a ragged 20,000-key
+             memory whose slices are read in tiles: every output within one
+             bf16 ulp of the plain version's plus 2^-8 of the largest output
+             (both round the same bf16 probabilities; only the sums' order
+             differs); reruns bit-identical; ms per call (CUDA events) beside
+             the plain version, ``scaled_dot_product_attention`` and the bound
+             (K and V read once, 2 * B * H * Tm * 128 bytes, at 3.35 TB/s).
 3. slice   — serve through ``load_synthesizer(TTSConfig(), quant=...)`` at full
              default width with seeded random weights: (a) int8_kv, 256 frames
              (3.2 s, 1,280 tokens; 1,024 frames before the megakernel requests
@@ -43,7 +53,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 5b. default decode — ``load_synthesizer(TTSConfig(), quant="none")``, the
              CLI's default, whose step loop is captured too: (a') B=1, 256
              frames and (d') 1,024 frames (wall, decode ms per step, RTF; no
-             int8_matvec or megakernel launch); the captured decode against
+             int8_matvec or megakernel launch, and exactly n_layers
+             ``decode_attention`` executions a decode step, the graph's
+             replays counted); the captured decode against
              the eager in-place step loop over 256 steps (equal tokens,
              bit-identical logits), both timed; torch.profiler over 32
              steps of the eager loop (device busy and idle share, kernels
@@ -366,6 +378,67 @@ def phase_kernels(torch):
     return rows, worst
 
 
+DECODE_ATTENTION_CASES = [  # (name, B, H, Tm): the narration batch, one row, a tiled memory
+    ("narration", 8, 8, 1536), ("b1", 1, 8, 1536), ("tiled", 2, 8, 20000),
+]
+
+
+def phase_decode_attention(torch, iters=200):
+    """Phase 2b: see the module docstring.  Returns one row a case."""
+    import torch.nn.functional as F
+
+    from mamba_tts_torch.ops import decode_attention as da
+
+    scale, rows = 64 ** -0.5, []
+    for name, B, H, Tm in DECODE_ATTENTION_CASES:
+        g = torch.Generator(device="cuda").manual_seed(B * 100_000 + Tm)
+        mem = [torch.randn((B, Tm, H * 64), generator=g, device="cuda").bfloat16() for _ in range(2)]
+
+        def heads(t):  # (B, Tm, H·64) -> (B, H, Tm, 64), as CrossAttention._split leaves it
+            return t.reshape(B, Tm, H, 64).transpose(1, 2)
+
+        K, V = heads(mem[0]), heads(mem[1])
+        q = torch.randn((B, 1, H * 64), generator=g, device="cuda").bfloat16()
+        mask = torch.ones((B, Tm), dtype=torch.bool, device="cuda")
+        for b in range(B):  # row b loses its last (b + 1) / 3B of the keys
+            mask[b, Tm - ((b + 1) * Tm) // (3 * B):] = False
+        plan = da.launch_plan(B, H, Tm)
+        got = da.decode_attention(q, K, V, mask, scale)
+        again = da.decode_attention(q, K, V, mask, scale)
+        want = da.decode_attention_ref(q, K, V, mask, scale)
+        torch.cuda.synchronize()
+        w = want.float()
+        err = (got.float() - w).abs()
+        top = float(w.abs().max())
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)  # one bf16 ulp of w
+        lim = ulp + 2.0 ** -9 * top
+        check(bool((err <= lim).all()), f"decode_attention {name}: max err {float(err.max())} "
+              f"beyond one bf16 ulp + 2^-9 of the largest output {top}")
+        check(torch.equal(got, again), f"decode_attention {name}: reruns differ")
+        # timing: K and V rotated through > 2x L2, so that every call reads them from HBM
+        nbytes = 2 * B * H * Tm * 128
+        R = max(1, -(-2 * L2_BYTES // nbytes))
+        kv = [(heads(mem[0].clone()), heads(mem[1].clone())) for _ in range(R)]
+        bias_mask = mask[:, None, None, :]
+        q4 = q.reshape(B, 1, H, 64).transpose(1, 2)
+        ms = device_ms(torch, lambda i: da.decode_attention(q, *kv[i % R], mask, scale), iters)
+        plain_ms = device_ms(torch, lambda i: da.decode_attention_ref(q, *kv[i % R], mask, scale),
+                             iters)
+        library_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+            q4, *kv[i % R], attn_mask=bias_mask, scale=scale), iters)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"phase": "decode_attention", "case": name, "B": B, "H": H, "Tm": Tm,
+               "plan": plan._asdict(), "max_abs_err": float(err.max()),
+               "max_rel_err": float(err.max()) / top,
+               "equal_outputs": float((got == want).float().mean()), "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes", "bound_share": bound_ms / ms}
+        emit(row)
+        rows.append(row)
+        del kv, mem, K, V
+    return rows
+
+
 def _voice(seconds=3.0, sr=16000, seed=0):
     import numpy as np
 
@@ -662,25 +735,30 @@ def _timed_request(torch, synth, fn, frames, batch, row):
 
 def _zero_counts():
     from mamba_tts_torch.ops import decode_megakernel as mk
+    from mamba_tts_torch.ops.decode_attention import decode_attention
     from mamba_tts_torch.ops.int8_matvec import int8_matvec
 
     mk._megakernel_call.launches = 0
     int8_matvec.launches = 0
+    decode_attention.launches = 0
     return lambda: {"int8_matvec": int8_matvec.launches,
-                    "decode_megakernel": mk._megakernel_call.launches}
+                    "decode_megakernel": mk._megakernel_call.launches,
+                    "decode_attention": decode_attention.launches}
 
 
 def phase_default_decode(torch, voice, eager_steps=256, eager_profiled=32,
                          profile_frames=(8, 24)):
     """``quant="none"``, the CLI's default, at full width: (a') B=1, 256
     frames and (d') the flagship, 1,024 frames, through the captured decode
-    (no custom kernel: the step is plain products); the captured decode
+    (its one custom kernel, ``decode_attention``, launched once a layer a
+    step; the rest is plain products); the captured decode
     against the eager in-place step loop over its first 256 steps (equal
     tokens, bit-identical logits), both timed; torch.profiler over the eager
     loop's next 32 steps (device busy, idle share against the unprofiled
     wall of the 32 steps before them, as phase 5 does for the int8 loop) and
     over the served decode at 8 and 24 frames (fewer than phase 5's, to keep
-    the profiler's cost down).  Returns the synthesizer."""
+    the profiler's cost down).  Returns the synthesizer and the
+    ``decode_attention`` launches of (a') and (d')."""
     from torch.profiler import ProfilerActivity, profile
 
     from mamba_tts_torch.config import TTSConfig
@@ -692,12 +770,18 @@ def phase_default_decode(torch, voice, eager_steps=256, eager_profiled=32,
     synth = load_synthesizer(cfg, seed=0, quant="none", device="cuda")
     torch.cuda.synchronize()
     emit({"phase": "default_decode", "setup_seconds": time.perf_counter() - t0})
+    launches = 0
     for tag, frames in (("a'_none_3.2s", 256), ("d'_none_12.8s", 1024)):
         read = _zero_counts()
-        emit(_timed_request(torch, synth, lambda: synth.synthesize(TEXT, STYLE, voice, frames=frames),
-                            frames, 1, {"phase": "default_decode", "request": tag})[1])
-        check(read() == {"int8_matvec": 0, "decode_megakernel": 0},
-              f"{tag}: a kernel of another decode ran: {read()}")
+        row = _timed_request(torch, synth, lambda: synth.synthesize(TEXT, STYLE, voice, frames=frames),
+                             frames, 1, {"phase": "default_decode", "request": tag})[1]
+        n = read()
+        steps = cfg.decoder.num_quantizers * frames
+        want = {"int8_matvec": 0, "decode_megakernel": 0,
+                "decode_attention": cfg.decoder.n_layers * steps}
+        check(n == want, f"{tag}: launches {n}, expected {want}")
+        emit({**row, "decode_attention_launches": n["decode_attention"]})
+        launches += n["decode_attention"]
 
     th, mask, rh, rm, z = _condition(torch, synth)
     dec, dc = synth.decoder, synth.decoder.cfg
@@ -756,7 +840,7 @@ def phase_default_decode(torch, voice, eager_steps=256, eager_profiled=32,
     emit({"phase": "default_decode", "profile": True, **prof,
           "profile_seconds": time.perf_counter() - t})
     check(prof["kernel_launches_per_step"] > 0, "the profiler saw no kernel of the replays")
-    return synth
+    return synth, launches
 
 
 # ---------------------------------------------------------------- megakernel
@@ -1545,7 +1629,7 @@ def phase_checkpoint_serving(torch, tmp, voice, frames=128):
           sum(n.startswith("style_pipe.") for n in params), "moved_from_init": moved})
 
     per_step = 6 * cfg.decoder.n_layers
-    launches = {"int8_matvec": 0, "decode_megakernel": 0}
+    launches = {"int8_matvec": 0, "decode_megakernel": 0, "decode_attention": 0}
     for quant in ("none", "int8", "megakernel"):
         served = synth if quant == "megakernel" else Synthesizer(
             cfg, synth.model, tokenizer=synth.tokenizer, frontend=synth.frontend,
@@ -1557,9 +1641,12 @@ def phase_checkpoint_serving(torch, tmp, voice, frames=128):
                                         "request": f"trained_{quant}"})[1])
         n = read()
         steps = cfg.decoder.num_quantizers * frames
-        want = {"none": {"int8_matvec": 0, "decode_megakernel": 0},
-                "int8": {"int8_matvec": per_step * steps, "decode_megakernel": 0},
-                "megakernel": {"int8_matvec": 0, "decode_megakernel": 1}}[quant]
+        want = {"none": {"int8_matvec": 0, "decode_megakernel": 0,
+                         "decode_attention": cfg.decoder.n_layers * steps},
+                "int8": {"int8_matvec": per_step * steps, "decode_megakernel": 0,
+                         "decode_attention": 0},
+                "megakernel": {"int8_matvec": 0, "decode_megakernel": 1,
+                               "decode_attention": 0}}[quant]
         check(n == want, f"checkpoint serving, quant={quant}: launches {n}, expected {want}")
         launches = {k: launches[k] + v for k, v in n.items()}
 
@@ -1670,7 +1757,8 @@ def phase_released_weights(torch, tmp, voice, frames=128, seed=0):
     emit(_timed_request(torch, synth, lambda: synth.synthesize(TEXT, STYLE, voice, frames=frames),
                         frames, 1, {"phase": "released_weights", "request": "released_megakernel"})[1])
     n = read()
-    check(n == {"int8_matvec": 0, "decode_megakernel": 1}, f"released weights: launches {n}")
+    check(n == {"int8_matvec": 0, "decode_megakernel": 1, "decode_attention": 0},
+          f"released weights: launches {n}")
     emit({"phase": "released_weights", "load_seconds": load_s, "facodec_parameters": len(codec_params),
           "bert_parameters": len(bert_keys), "fused_weights": len(fused),
           "fused_max_rel_err": worst})
@@ -2785,13 +2873,14 @@ def main():
     card = nvidia_smi_line()
     phase_build()
     rows, worst = phase_kernels(torch)
+    da_rows = phase_decode_attention(torch)
     synth, _, launches = phase_slice(torch)
     phase_parity(torch, synth)
     phase_captured_vs_eager(torch, synth)
     phase_profile(torch, synth)
     del synth
     voice = _voice()
-    synth_none = phase_default_decode(torch, voice)
+    synth_none, da_launches = phase_default_decode(torch, voice)
     synth_mk, _, mk_launches = phase_megakernel_slice(torch, voice)
     mk_worst = phase_megakernel_kernel(torch, synth_mk)
     mk_rows, mk_one = phase_megakernel_times(torch, synth_mk, voice)
@@ -2881,6 +2970,15 @@ def main():
         "trained_weights_launches": ck_launches["decode_megakernel"],
         "released_weights_launches": released_launches,
         "parallel_launches": par_launches["decode_megakernel"],
+    }, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "mamba_tts_torch/ops/csrc/decode_attention.cu", "replaces": None,
+        "jax_counterpart": "mamba_tts_tpu/models/attention.py:99 (_naive: XLA einsums, no Pallas kernel)",
+        "launches": da_launches, "max_abs_err": max(r["max_abs_err"] for r in da_rows),
+        **{k: da_rows[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "at": "B=8, H=8, Tm=1,536 (the narration batch), ragged mask, K/V cold in L2",
+        "ms_by_case": {r["case"]: r["ms"] for r in da_rows},
+        "bound_ms_by_case": {r["case"]: r["bound_ms"] for r in da_rows},
     }] + [{
         "name": k, "route": "cuda", "source": TRAIN_SOURCES[k][0], "replaces": TRAIN_SOURCES[k][1],
         "launches": train_launches[k], **train_rows[k],

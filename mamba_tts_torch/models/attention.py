@@ -10,9 +10,12 @@ get an additive -1e9 before the softmax.
 
 Long queries (Tq >= 128) are the teacher-forced/training case, which the JAX
 package sends to a TPU flash-attention kernel.  On the card that case goes to
-the Hopper flash kernels of ``ops/flash_attention.py`` (forward and backward);
-shorter queries, as in the decode step, and CPU tensors at any length take
-the plain materialized softmax, as the JAX package does off the TPU.
+the Hopper flash kernels of ``ops/flash_attention.py`` (forward and backward).
+One query with no gradient recorded, head size 64 and bf16 K/V, the decode
+step, goes on the card to the kernel of ``ops/decode_attention.py``, which
+reads the K/V in place (and raises for a layout it does not take); other
+short queries, and CPU tensors at any length, take the plain materialized
+softmax, as the JAX package does off the TPU.
 
 With ``mesh`` the heads shard over the mesh's "model" axis: q/k/v
 column-parallel with their biases, ``o_proj`` row-parallel, and the
@@ -27,6 +30,7 @@ import torch.nn as nn
 
 from mamba_tts_torch.device import on_card
 from mamba_tts_torch.models.layers import Dense, row_parallel
+from mamba_tts_torch.ops import decode_attention as one_query
 from mamba_tts_torch.ops.flash_attention import (  # noqa: F401  (mask_bias: shared helper)
     flash_attention,
     flash_attention_ref,
@@ -69,13 +73,20 @@ class CrossAttention(nn.Module):
                memory_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, Tq, d_model) queries against precomputed K/V."""
         B, Tq, _ = x.shape
-        q = self._split(self.q_proj(copy_to_group(x, self.tp_group)))  # (B, H, Tq, hd)
+        q = self.q_proj(copy_to_group(x, self.tp_group))  # (B, Tq, H·hd)
         scale = self.head_dim ** -0.5
-        if Tq >= FLASH_MIN_QUERIES and on_card(x):
-            out = flash_attention(q, K, V, memory_mask, scale)
+        records_grad = torch.is_grad_enabled() and (q.requires_grad or K.requires_grad
+                                                    or V.requires_grad)
+        if (Tq == 1 and on_card(x) and not records_grad and self.head_dim == one_query.HEAD_DIM
+                and K.dtype == V.dtype == torch.bfloat16):
+            out = one_query.decode_attention(q, K, V, memory_mask, scale)  # (B, 1, H·hd)
         else:
-            out = flash_attention_ref(q, K, V, memory_mask, scale)
-        out = out.transpose(1, 2).reshape(B, Tq, self.d_model)
+            q = self._split(q)  # (B, H, Tq, hd)
+            if Tq >= FLASH_MIN_QUERIES and on_card(x):
+                out = flash_attention(q, K, V, memory_mask, scale)
+            else:
+                out = flash_attention_ref(q, K, V, memory_mask, scale)
+            out = out.transpose(1, 2).reshape(B, Tq, self.d_model)
         return row_parallel(self.o_proj, out, self.tp_group)
 
     def forward(self, x, memory, memory_mask=None):

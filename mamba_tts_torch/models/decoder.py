@@ -32,7 +32,7 @@ Mask convention: True = VALID.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -44,6 +44,7 @@ from mamba_tts_torch.device import on_card
 from mamba_tts_torch.models.attention import CrossAttention
 from mamba_tts_torch.models.layers import Dense, Embed, LayerNorm, parse_dtype, row_parallel
 from mamba_tts_torch.models.mamba import MambaBlock, MambaState, init_mamba_state
+from mamba_tts_torch.ops.decode_attention import decode_attention
 from mamba_tts_torch.parallel.comm import copy_to_group
 from mamba_tts_torch.parallel.mesh import axis_size, model_group
 from mamba_tts_torch.utils.profiling import annotate, count
@@ -291,25 +292,40 @@ def graph_split(total: int, steps_per_graph: int = DECODE_GRAPH_STEPS) -> Tuple[
     return total - steps_per_graph * r, r
 
 
+_SIDE_STREAMS: Dict[int, torch.cuda.Stream] = {}  # device index -> the decode's side stream
+
+
+def _side_stream() -> torch.cuda.Stream:
+    """The current device's one side stream for the decode's warm-up and
+    capture, made once.  PyTorch keeps a cuBLAS workspace for every (handle,
+    stream) pair it has run a product on and frees none, so a new stream
+    each call left 33 MiB of device memory behind every request."""
+    dev = torch.cuda.current_device()
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream()
+    return _SIDE_STREAMS[dev]
+
+
 def run_captured(step_fn, total: int, generator: Optional[torch.Generator] = None,
                  steps_per_graph: int = DECODE_GRAPH_STEPS, counters: Sequence = ()) -> None:
     """Run ``step_fn`` (one in-place step on static buffers) ``total`` times
     on the card: the first ``total - steps_per_graph * r`` steps (1 to
-    ``steps_per_graph``) run eagerly on a side stream, which is also the
-    warm-up that capture needs; then ``steps_per_graph`` steps are captured
-    into one CUDA graph and replayed ``r`` times.  This is the counterpart of
-    the JAX package's ``jax.lax.scan(body, ..., unroll=4)`` under ``jit``.
+    ``steps_per_graph``) run eagerly on the device's side stream, which is
+    also the warm-up that capture needs; then ``steps_per_graph`` steps are
+    captured on that stream into one CUDA graph and replayed ``r`` times.
+    This is the counterpart of the JAX package's ``jax.lax.scan(body, ...,
+    unroll=4)`` under ``jit``.
     ``generator`` (sampled decode) is registered with the graph, so every
     replay draws fresh numbers from it.  A failed capture raises.
 
     ``counters`` are kernel wrappers whose ``launches`` count executions:
     the calls made while capturing are taken back, and each replay adds the
     graph's count.  Traced: the warm-up and the capture are the span
-    ``decode.capture`` (each capture counts one ``decode.graph_captures``),
-    the replays ``decode.run``."""
+    ``decode.capture`` (its ``steps``: the warm-up's; each capture counts
+    one ``decode.graph_captures``), the replays ``decode.run``."""
     warm, r = graph_split(total, steps_per_graph)
-    with annotate("decode.capture"):
-        side = torch.cuda.Stream()
+    with annotate("decode.capture", steps=warm):
+        side = _side_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(warm):
@@ -321,7 +337,7 @@ def run_captured(step_fn, total: int, generator: Optional[torch.Generator] = Non
         if generator is not None:
             graph.register_generator_state(generator)
         before = [c.launches for c in counters]
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             for _ in range(steps_per_graph):
                 step_fn()
         count("decode.graph_captures")
@@ -361,7 +377,10 @@ def greedy_decode(
     """Autoregressive decode over Q * frames_per_stream steps from BOS.
     ``temperature == 0`` -> greedy argmax; otherwise sampling with
     ``generator``.  On the card the step loop replays a captured CUDA graph
-    (:func:`run_captured`); on the CPU it runs :func:`decode_step_` eagerly."""
+    (:func:`run_captured`), and the one-query attention kernel's executions
+    (the warm-up's and the replays') are counted as
+    ``decode.attention_launches`` while tracing is on; on the CPU it runs
+    :func:`decode_step_` eagerly."""
     c = decoder.cfg
     B = text_hidden.shape[0]
     Q = num_streams if num_streams is not None else c.num_quantizers
@@ -380,7 +399,12 @@ def greedy_decode(
         decode_step_(step, carry, c.num_special_tokens, temperature, top_k, generator)
 
     if on_card(text_hidden):
-        run_captured(step_fn, total, generator if temperature > 0.0 else None)
+        before = decode_attention.launches
+        run_captured(step_fn, total, generator if temperature > 0.0 else None,
+                     counters=(decode_attention,))
+        launched = decode_attention.launches - before
+        if launched:  # a decode that does not take the kernel counts nothing
+            count("decode.attention_launches", launched)
     else:
         run_eager(step_fn, total)
     logits = (carry.logits if collect_logits

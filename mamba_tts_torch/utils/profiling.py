@@ -11,7 +11,8 @@ The tracer.  The program opens a span at each layer boundary of serving
 and training (``synth.request`` and its front-ends, ``synth.decode`` with
 ``decode.memory``, ``decode.plan``, ``decode.capture`` and ``decode.run``;
 ``train.step`` with ``train.forward``, ``train.backward`` and
-``train.optimizer``) and counts a few events (``decode.graph_captures``).
+``train.optimizer``) and counts a few events (``decode.graph_captures``,
+``decode.attention_launches``).
 Tracing is on while :func:`enable` is in force or while a
 ``torch.profiler`` session is open, so a profiled stretch carries the
 program's spans, and is off otherwise: a span then costs one check and

@@ -24,6 +24,7 @@ from mamba_tts_torch.models.layers import Conv, Dense, seed_init
 from mamba_tts_torch.models.mamba import MambaBlock
 from mamba_tts_torch.models.style import StyleConditioningPipeline
 from mamba_tts_torch.models.tts import MambaTTS
+from mamba_tts_torch.ops import decode_attention as da
 from mamba_tts_torch.ops import decode_megakernel as mk
 from mamba_tts_torch.ops import flash_attention as fa
 from mamba_tts_torch.ops import int8_matvec as tq
@@ -32,6 +33,7 @@ from mamba_tts_torch.ops import selective_scan as ts
 from mamba_tts_torch.train import state as state_lib
 from mamba_tts_torch.train import train as train_lib
 from mamba_tts_torch.train import train_codec
+from mamba_tts_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -68,8 +70,8 @@ def test_int8_matvec_kernel_matches_plain_on_card(card, B):
             assert torch.equal(got, again)
 
 
-def _small_decoder(card, seed=0):
-    cfg = DecoderConfig(codebook_size=64, d_model=128, n_layers=2, n_heads=4, d_ff=256,
+def _small_decoder(card, seed=0, n_heads=4):
+    cfg = DecoderConfig(codebook_size=64, d_model=128, n_layers=2, n_heads=n_heads, d_ff=256,
                         d_style=32, max_len=256, num_quantizers=3, dtype="bfloat16",
                         scan_chunk=8, use_pallas=False, mamba=MambaConfig(d_model=128, d_state=8))
     return seed_init(MambaTTSDecoder(cfg), seed).to(card).eval()
@@ -596,6 +598,143 @@ def test_selective_scan_fn_matches_autograd_on_card(card, with_h0):
     want = grads(lambda *a: ts.selective_scan_ref(*a))
     for g_, w_ in zip(got, want):
         assert _rel(g_, w_) <= 1e-4
+
+
+def test_captured_none_decode_takes_decode_attention_on_card(card):
+    """With head_dim 64 the captured decode's cross-attention is the
+    one-query kernel, one launch a layer a step (the warm-up's launches and
+    the replays' executions), and the tracer counts them as
+    ``decode.attention_launches``; tokens and logits equal the eager in-place
+    loop's, which launches the same kernel."""
+    dec = _small_decoder(card, n_heads=2)
+    th, z, kw = _decode_inputs(card, dec, 4, seed=4)
+    frames = 9
+    total = dec.cfg.num_quantizers * frames
+    before = da.decode_attention.launches
+    profiling.reset()
+    profiling.enable()
+    try:
+        got = greedy_decode(dec, th, z, frames, collect_logits=True, **kw)
+        torch.cuda.synchronize()
+        counted = profiling.counters().get("decode.attention_launches")
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert da.decode_attention.launches - before == dec.cfg.n_layers * total
+    assert counted == dec.cfg.n_layers * total
+    want = _eager_none_decode(dec, th, z, frames, kw)
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.logits, want.logits)
+
+
+def test_captured_decode_leaves_no_device_memory_behind_on_card(card):
+    """Requests after the first leave the allocated device memory where it
+    was: the warm-up and capture run on the device's one side stream (a new
+    stream a call left a cuBLAS workspace behind each time)."""
+    dec = _small_decoder(card)
+    th, z, kw = _decode_inputs(card, dec, 2, seed=2)
+    left = []
+    for _ in range(4):
+        greedy_decode(dec, th, z, 9, **kw)
+        torch.cuda.synchronize()
+        left.append(torch.cuda.memory_allocated())
+    assert left[1] == left[2] == left[3], left
+
+
+CU_GRAPH_NODE_KERNEL = 0  # CUgraphNodeType: a kernel launch
+
+
+def _captured_node_types(card, fn):
+    """The node types of the CUDA graph that stream capture records around
+    ``fn()`` on a side stream (through libcuda, so every kernel launch, copy
+    and memset the calls make is a node; the graph is never launched)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    stream, graph = ctypes.c_void_p(side.cuda_stream), ctypes.c_void_p()
+    with torch.cuda.stream(side):
+        fn()  # the side stream's cached blocks exist before the capture
+        torch.cuda.synchronize(card)
+        assert cu.cuStreamBeginCapture_v2(stream, ctypes.c_int(2)) == 0  # relaxed mode
+        try:
+            fn()
+        finally:
+            assert cu.cuStreamEndCapture(stream, ctypes.byref(graph)) == 0
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0
+        types.append(t.value)
+    assert cu.cuGraphDestroy(graph) == 0
+    return types
+
+
+def _decode_attention_case(card, B, H, Tm, seed, mask_kind):
+    """q (B, 1, H·64) and K, V as ``CrossAttention._split`` leaves them;
+    masks: each row losing its last b·Tm/2B keys, that plus a whole slice of
+    the launch plan masked in row 0 (and in the last row), or none."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    K, V = (torch.randn((B, Tm, H * 64), generator=g, device=card).bfloat16()
+            .reshape(B, Tm, H, 64).transpose(1, 2) for _ in range(2))
+    q = torch.randn((B, 1, H * 64), generator=g, device=card).bfloat16()
+    if mask_kind == "none":
+        return q, K, V, None
+    mask = torch.ones((B, Tm), dtype=torch.bool, device=card)
+    for b in range(B):
+        mask[b, Tm - (b * Tm) // (2 * B):] = False
+    if mask_kind == "slice":
+        keys = da.launch_plan(B, H, Tm).keys
+        mask[0, keys:2 * keys] = False
+        mask[B - 1, :keys] = False
+    return q, K, V, mask
+
+
+@pytest.mark.parametrize("B,H,Tm,mask_kind", [(8, 8, 1536, "ragged"), (1, 8, 1536, "ragged"),
+                                              (4, 8, 1536, "none"), (3, 2, 77, "ragged"),
+                                              (2, 8, 1000, "slice"), (8, 8, 1, "none"),
+                                              (16, 8, 6000, "slice"), (1, 1, 6913, "slice"),
+                                              (2, 8, 20_000, "slice")])
+def test_decode_attention_kernel_matches_plain_on_card(card, B, H, Tm, mask_kind):
+    """The narration shape (B = 8, H = 8, Tm = 1,536), B = 1, ragged and
+    masked memories, and memories whose slices are read in tiles (scores
+    in the workspace) against the plain version, at the flash kernels'
+    2e-2 of the largest output (the kernel sums in another order); a rerun
+    is bit-identical, and a call is one device kernel: five calls captured
+    into a CUDA graph are five kernel nodes and nothing else (the profiler
+    was dropping some of this kernel's records on the card)."""
+    q, K, V, mask = _decode_attention_case(card, B, H, Tm, seed=B * 10_000 + Tm, mask_kind=mask_kind)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, K, V, mask, 64 ** -0.5)
+    again = da.decode_attention(q, K, V, mask, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 2
+    want = da.decode_attention_ref(q, K, V, mask, 64 ** -0.5)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, 1, H * 64)
+    assert _rel(got, want) <= 2e-2
+    assert torch.equal(got, again)
+    assert _captured_node_types(card, lambda: [da.decode_attention(q, K, V, mask, 64 ** -0.5)
+                                                for _ in range(5)]) == [CU_GRAPH_NODE_KERNEL] * 5
+
+
+def test_decode_attention_rejects_what_it_does_not_take(card):
+    q, K, V, mask = _decode_attention_case(card, 2, 2, 33, seed=0, mask_kind="ragged")
+    with pytest.raises(ValueError, match="does not take"):
+        da.decode_attention(q, K.contiguous(), V, mask, 1.0)
+    with pytest.raises(ValueError, match="does not take"):
+        da.decode_attention(q.float(), K, V, mask, 1.0)
+    with pytest.raises(ValueError, match="does not take"):
+        da.decode_attention(q, K, V, mask[:, :4], 1.0)
+    plan = da.launch_plan(2, 2, 33)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        da._launch(q, K, V, mask, 1.0, plan._replace(smem_bytes=plan.smem_bytes + 16))
+    with pytest.raises(RuntimeError, match="launch failed"):  # a workspace where none is read
+        da._launch(q, K, V, mask, 1.0, plan._replace(workspace=2 * 2 * plan.cluster * plan.keys))
 
 
 def _flash_case(card, Bz, H, Tq, Tk, seed):
