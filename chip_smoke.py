@@ -26,6 +26,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              differs); reruns bit-identical; ms per call (CUDA events) beside
              the plain version, ``scaled_dot_product_attention`` and the bound
              (K and V read once, 2 * B * H * Tm * 128 bytes, at 3.35 TB/s).
+2c. grouped decode attention — the same source's grouped kernel (the jamba
+             decoder's self-attention step: head_dim 128, 20 query heads on
+             one K/V head) against ``decode_attention_ref`` at B = 16 over a
+             4,100-key cache with 1,538, 2,818 and 4,100 valid keys, and at
+             B = 1: the tolerance of 2b; reruns bit-identical; ms per call
+             beside the plain version and the bound (each valid K/V byte
+             once, q and the output, at 3.35 TB/s).
 3. slice   — serve through ``load_synthesizer(TTSConfig(), quant=...)`` at full
              default width with seeded random weights: (a) int8_kv, 256 frames
              (3.2 s, 1,280 tokens; 1,024 frames before the megakernel requests
@@ -436,6 +443,51 @@ def phase_decode_attention(torch, iters=200):
         emit(row)
         rows.append(row)
         del kv, mem, K, V
+    return rows
+
+
+GROUPED_CASES = [  # (name, B, valid keys) over a 4,100-key cache of 1 K/V head of 128
+    ("jamba B=16 valid=1538", 16, 1538), ("jamba B=16 valid=2818", 16, 2818),
+    ("jamba B=16 valid=4100", 16, 4100), ("jamba B=1 valid=2818", 1, 2818)]
+
+
+def phase_grouped_attention(torch, iters=200, Tm=4100, G=20, hd=128):
+    """Phase 2c: see the module docstring.  Returns one row a case."""
+    from mamba_tts_torch.ops import decode_attention as da
+
+    scale, rows = hd ** -0.5, []
+    for name, B, valid in GROUPED_CASES:
+        g = torch.Generator(device="cuda").manual_seed(B * 100_000 + valid)
+        cache = torch.randn((2, B, Tm, 1, hd), generator=g, device="cuda").bfloat16()
+        K, V = cache[0].transpose(1, 2), cache[1].transpose(1, 2)  # as SelfAttention.step
+        q = torch.randn((B, 1, G * hd), generator=g, device="cuda").bfloat16()
+        n = torch.clamp(valid - 7 * torch.arange(B, device="cuda"), min=1)
+        mask = torch.arange(Tm, device="cuda")[None] < n[:, None]
+        got = da.decode_attention(q, K, V, mask, scale)
+        again = da.decode_attention(q, K, V, mask, scale)
+        want = da.decode_attention_ref(q, K, V, mask, scale)
+        torch.cuda.synchronize()
+        w = want.float()
+        err = (got.float() - w).abs()
+        top = float(w.abs().max())
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+        check(bool((err <= ulp + 2.0 ** -9 * top).all()),
+              f"grouped decode_attention {name}: max err {float(err.max())} (largest {top})")
+        check(torch.equal(got, again), f"grouped decode_attention {name}: reruns differ")
+        ms = device_ms(torch, lambda i: da.decode_attention(q, K, V, mask, scale), iters)
+        plain_ms = device_ms(torch, lambda i: da.decode_attention_ref(q, K, V, mask, scale),
+                             iters)
+        nbytes = 2 * 2 * int(n.sum()) * hd + 2 * 2 * B * G * hd
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"phase": "grouped_attention", "case": name, "B": B, "G": G, "head_dim": hd,
+               "Tm": Tm, "plan": da.grouped_launch_plan(B, 1, G, hd, Tm)._asdict(),
+               "max_abs_err": float(err.max()), "max_rel_err": float(err.max()) / top,
+               "equal_outputs": float((got == want).float().mean()), "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+               "bound_share": bound_ms / ms}
+        emit(row)
+        rows.append(row)
+        del cache, K, V
     return rows
 
 
@@ -2874,6 +2926,7 @@ def main():
     phase_build()
     rows, worst = phase_kernels(torch)
     da_rows = phase_decode_attention(torch)
+    ga_rows = phase_grouped_attention(torch)
     synth, _, launches = phase_slice(torch)
     phase_parity(torch, synth)
     phase_captured_vs_eager(torch, synth)
@@ -2979,6 +3032,8 @@ def main():
         "at": "B=8, H=8, Tm=1,536 (the narration batch), ragged mask, K/V cold in L2",
         "ms_by_case": {r["case"]: r["ms"] for r in da_rows},
         "bound_ms_by_case": {r["case"]: r["bound_ms"] for r in da_rows},
+        "grouped_ms_by_case": {r["case"]: r["ms"] for r in ga_rows},
+        "grouped_bound_ms_by_case": {r["case"]: r["bound_ms"] for r in ga_rows},
     }] + [{
         "name": k, "route": "cuda", "source": TRAIN_SOURCES[k][0], "replaces": TRAIN_SOURCES[k][1],
         "launches": train_launches[k], **train_rows[k],

@@ -91,6 +91,32 @@ class DecoderConfig:
     pad_id: int = 0
     bos_id: int = 1
 
+    # The block.  "mave": Mamba -> cross-attention over [ref || text] ->
+    # FiLM FFN (the defaults above).  "jamba" (models/hybrid.py): Jamba's
+    # pre-norm layers, Mamba (with RMSNorms of dt, B and C) or causal
+    # self-attention by the layer pattern (attention where
+    # i % attn_layer_period == attn_layer_offset), each followed by a
+    # SiLU-gated MLP of width d_ff, RMSNorm, a head tied to the token
+    # embedding, conditioned by a prefix [style || voice || text]; its
+    # matrices are held in ``dtype``.
+    block: str = "mave"
+    attn_layer_offset: int = 0
+    attn_layer_period: int = 0  # 0: no self-attention layer
+    n_kv_heads: int = 0  # 0: n_heads (the jamba block's self-attention)
+
+    @property
+    def hybrid(self) -> bool:
+        return self.block == "jamba"
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """"mamba" or "attention" for each layer of the jamba block."""
+        p, o = self.attn_layer_period, self.attn_layer_offset
+        return tuple("attention" if p and i % p == o else "mamba" for i in range(self.n_layers))
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
     @property
     def vocab_size_audio(self) -> int:
         return self.codebook_size + self.num_special_tokens

@@ -8,13 +8,16 @@ counterpart of ``mamba_tts_tpu/infer/synthesize.py``.
     autoregressive decode over Q * frames tokens (step loop or megakernel)
     codec ids --FACodec decode--> waveform
 
-``quant`` selects the decode: "none" (full-precision step), "int8" (the
+``quant`` selects the decode of the MAVE decoder: "none" (full-precision step), "int8" (the
 large per-step products through the Hopper ``int8_matvec`` kernel),
 "int8_kv" (int8 weights and int8 cross-attention K/V) or "megakernel" (the
 whole decode in one launch of the Hopper kernel of
 ``ops/decode_megakernel.py``, greedy or Gumbel-max sampled, with the
 weight/K-V dtypes chosen per batch and memory length by its planner; a
-batch the planner finds no fit for takes the int8 step decode).
+batch the planner finds no fit for takes the int8 step decode).  The jamba
+decoder (``DecoderConfig.block == "jamba"``) takes ``quant="none"`` only: a
+prefill of each row's prefix, then its captured decode
+(``models/hybrid.py`` ``hybrid_greedy_decode``).
 :func:`load_synthesizer` serves the newest checkpoint of the port's train
 CLI (configured by the ``config.json`` beside it) and the released FACodec
 state dicts from local paths.
@@ -56,6 +59,7 @@ from mamba_tts_torch.config import TTSConfig
 from mamba_tts_torch.device import resolve_device
 from mamba_tts_torch.infer.quant_decode import greedy_decode_int8, quantize_decoder_params
 from mamba_tts_torch.models.decoder import greedy_decode
+from mamba_tts_torch.models.hybrid import hybrid_greedy_decode
 from mamba_tts_torch.models.layers import seed_init
 from mamba_tts_torch.models.style_text_encoder import StyleTextEncoder
 from mamba_tts_torch.models.tts import MambaTTS
@@ -115,6 +119,9 @@ class Synthesizer:
     ):
         if quant not in ("none", "int8", "int8_kv", "megakernel"):
             raise ValueError(f"quant must be none|int8|int8_kv|megakernel, got {quant!r}")
+        if cfg.decoder.hybrid and quant != "none":
+            raise ValueError(f"the jamba decoder decodes through its captured bf16 path only "
+                             f"(quant='none'), not quant={quant!r}")
         self.cfg = cfg
         self.mesh = mesh
         self.quant = quant
@@ -162,7 +169,9 @@ class Synthesizer:
                     self.decoder.cfg, phoneme_ids.shape[0],
                     ref_hidden.shape[1] + text_hidden.shape[1], sampled=temperature > 0,
                     unroll_steps=_MEGAKERNEL_UNROLL)
-        if self.quant == "none":
+        if self.decoder.cfg.hybrid:
+            res = hybrid_greedy_decode(self.decoder, text_hidden, z_style, frames, **kw)
+        elif self.quant == "none":
             res = greedy_decode(self.decoder, text_hidden, z_style, frames, **kw)
         elif mega is not None:
             res = megakernel_greedy_decode(

@@ -20,6 +20,14 @@ softmax, as the JAX package does off the TPU.
 With ``mesh`` the heads shard over the mesh's "model" axis: q/k/v
 column-parallel with their biases, ``o_proj`` row-parallel, and the
 attention (the flash kernels on the card) runs on H / tp local heads.
+
+:class:`SelfAttention` is the jamba block's (``models/hybrid.py``): causal,
+no positional encoding, no biases, ``n_kv_heads`` K/V heads each serving
+``n_heads / n_kv_heads`` query heads (multi-query at one).  Its full
+sequence runs ``scaled_dot_product_attention``; its decode step writes the
+token's K/V into a static cache at each row's own position and attends over
+the cache under the rows' valid-key mask through ``ops/decode_attention.py``
+(the grouped kernel on the card, which raises for a layout it does not take).
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from mamba_tts_torch.device import on_card
 from mamba_tts_torch.models.layers import Dense, row_parallel
@@ -92,3 +101,46 @@ class CrossAttention(nn.Module):
     def forward(self, x, memory, memory_mask=None):
         K, V = self.project_memory(memory)
         return self.attend(x, K, V, memory_mask)
+
+
+class SelfAttention(nn.Module):
+    """Causal grouped-query self-attention (``JambaAttention``): q (H heads),
+    k and v (H_kv heads) of ``d_model / H`` channels, scale 1/sqrt(head_dim),
+    no biases, no positional encoding."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int, dtype=torch.bfloat16):
+        super().__init__()
+        if d_model % n_heads or n_heads % n_kv_heads:
+            raise ValueError(f"{n_heads} heads of d_model {d_model} over {n_kv_heads} K/V heads")
+        self.n_heads, self.n_kv_heads = n_heads, n_kv_heads
+        self.head_dim = d_model // n_heads
+        self.q_proj = Dense(d_model, n_heads * self.head_dim, bias=False, dtype=dtype)
+        self.k_proj = Dense(d_model, n_kv_heads * self.head_dim, bias=False, dtype=dtype)
+        self.v_proj = Dense(d_model, n_kv_heads * self.head_dim, bias=False, dtype=dtype)
+        self.o_proj = Dense(n_heads * self.head_dim, d_model, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x (B, T, d) -> (out (B, T, d), K, V (B, T, H_kv, head_dim))."""
+        B, T, _ = x.shape
+        hd = self.head_dim
+        q = self.q_proj(x).reshape(B, T, self.n_heads, hd).transpose(1, 2)
+        k = self.k_proj(x).reshape(B, T, self.n_kv_heads, hd)
+        v = self.v_proj(x).reshape(B, T, self.n_kv_heads, hd)
+        out = F.scaled_dot_product_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                                             is_causal=True, scale=hd ** -0.5, enable_gqa=True)
+        return self.o_proj(out.transpose(1, 2).reshape(B, T, self.n_heads * hd)), k, v
+
+    def step(self, x: torch.Tensor, K: torch.Tensor, V: torch.Tensor, mask: torch.Tensor,
+             rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """One token x (B, 1, d): its K/V go into the caches K, V (B, Tc,
+        H_kv, head_dim) at (rows, pos) and ``mask`` (B, Tc) marks them valid,
+        in place; then its queries attend over every valid key."""
+        B = x.shape[0]
+        q = self.q_proj(x)  # (B, 1, H·hd)
+        shape = (B, self.n_kv_heads, self.head_dim)
+        K.index_put_((rows, pos), self.k_proj(x).reshape(shape).to(K.dtype))
+        V.index_put_((rows, pos), self.v_proj(x).reshape(shape).to(V.dtype))
+        mask.index_put_((rows, pos), torch.ones((), dtype=torch.bool, device=mask.device))
+        out = one_query.decode_attention(q, K.transpose(1, 2), V.transpose(1, 2), mask,
+                                         self.head_dim ** -0.5)
+        return self.o_proj(out)

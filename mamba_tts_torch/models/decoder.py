@@ -242,12 +242,15 @@ class DecodeCarry(NamedTuple):
     """The decode's static buffers, updated in place by :func:`decode_step_`
     (the JAX scan's carry and outputs): the step index (1,) and the last
     token (B, 1) on the device, the output tokens (B, total), the per-step
-    logits (B, total, V) or None, and every layer's Mamba state."""
+    logits (B, total, V) or None, and every Mamba layer's state.  ``cache``:
+    the jamba decoder's K/V caches beside the states (``models/hybrid.py``
+    ``HybridCache``, written in place by its step), else None."""
     step: torch.Tensor
     token: torch.Tensor
     tokens: torch.Tensor
     logits: Optional[torch.Tensor]
     states: List[MambaState]
+    cache: Optional[NamedTuple] = None
 
 
 def init_carry(cfg: DecoderConfig, batch: int, total: int, dtype, device,
@@ -307,7 +310,8 @@ def _side_stream() -> torch.cuda.Stream:
 
 
 def run_captured(step_fn, total: int, generator: Optional[torch.Generator] = None,
-                 steps_per_graph: int = DECODE_GRAPH_STEPS, counters: Sequence = ()) -> None:
+                 steps_per_graph: int = DECODE_GRAPH_STEPS, counters: Sequence = (),
+                 path: str = "graph") -> None:
     """Run ``step_fn`` (one in-place step on static buffers) ``total`` times
     on the card: the first ``total - steps_per_graph * r`` steps (1 to
     ``steps_per_graph``) run eagerly on the device's side stream, which is
@@ -322,7 +326,8 @@ def run_captured(step_fn, total: int, generator: Optional[torch.Generator] = Non
     the calls made while capturing are taken back, and each replay adds the
     graph's count.  Traced: the warm-up and the capture are the span
     ``decode.capture`` (its ``steps``: the warm-up's; each capture counts
-    one ``decode.graph_captures``), the replays ``decode.run``."""
+    one ``decode.graph_captures``), the replays ``decode.run`` (its
+    ``path``)."""
     warm, r = graph_split(total, steps_per_graph)
     with annotate("decode.capture", steps=warm):
         side = _side_stream()
@@ -344,7 +349,7 @@ def run_captured(step_fn, total: int, generator: Optional[torch.Generator] = Non
     per_graph = [c.launches - b for c, b in zip(counters, before)]
     for c, b in zip(counters, before):
         c.launches = b
-    with annotate("decode.run", device_time=True, steps=steps_per_graph * r, path="graph"):
+    with annotate("decode.run", device_time=True, steps=steps_per_graph * r, path=path):
         for _ in range(r):
             graph.replay()
     for c, n in zip(counters, per_graph):

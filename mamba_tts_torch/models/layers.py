@@ -150,6 +150,23 @@ class LayerNorm(nn.Module):
             nn.init.zeros_(self.bias)
 
 
+class RMSNorm(nn.Module):
+    """RMSNorm (``JambaRMSNorm``): ``x / sqrt(mean(x^2) + eps) * weight`` in
+    f32, output cast to ``dtype`` (f32 when None)."""
+
+    def __init__(self, d: int, eps: float = 1e-6, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.d, self.eps, self.dtype = d, eps, dtype
+        self.weight = nn.Parameter(torch.ones(d))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.rms_norm(x.to(torch.float32), (self.d,), self.weight, self.eps)
+        return y.to(self.dtype or torch.float32)
+
+    def init_weights(self, g: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+
+
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """``nn.Dropout``: keep each element with probability ``1 - rate`` and

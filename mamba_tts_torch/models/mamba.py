@@ -6,6 +6,9 @@
       -> selective_scan(x, dt, A=-exp(A_log), B, C, D)
     y = scan_out * SiLU(z) -> out_proj
 
+With ``inner_norm_eps`` (Jamba's mixer) dt_raw, B and C each pass an
+RMSNorm after ``x_proj``.
+
 Decode carries :class:`MambaState` = (conv ring buffer, SSM state), O(1) per
 step.  ``forward`` (the full-sequence path, with gradients in training) runs
 its scan through the Hopper scan kernels on the card and the plain scan on
@@ -34,7 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mamba_tts_torch.config import MambaConfig
-from mamba_tts_torch.models.layers import Dense, normal_init, row_parallel
+from mamba_tts_torch.models.layers import Dense, RMSNorm, normal_init, row_parallel
 from mamba_tts_torch.ops.selective_scan import selective_scan, selective_scan_step
 from mamba_tts_torch.parallel import comm
 from mamba_tts_torch.parallel.mesh import model_group
@@ -54,7 +57,8 @@ class MambaBlock(nn.Module):
     """``sp_batch_sharded``: the batch rows are split over the sp axis too."""
 
     def __init__(self, cfg: MambaConfig, dtype=torch.bfloat16, mesh=None, sp_mesh=None,
-                 sp_axis: str = "data", sp_batch_sharded: bool = False):
+                 sp_axis: str = "data", sp_batch_sharded: bool = False,
+                 inner_norm_eps: Optional[float] = None):
         super().__init__()
         c = self.cfg = cfg
         self.dtype = dtype
@@ -69,6 +73,11 @@ class MambaBlock(nn.Module):
         self.A_log = nn.Parameter(torch.zeros(d_in, c.d_state))
         self.D = nn.Parameter(torch.ones(d_in))
         self.out_proj = Dense(d_in, c.d_model, bias=c.use_bias, dtype=dtype)
+        self.inner_norms = inner_norm_eps is not None  # Jamba's mixer
+        if self.inner_norms:
+            self.dt_norm = RMSNorm(c.dt_rank_actual, inner_norm_eps, dtype)
+            self.b_norm = RMSNorm(c.d_state, inner_norm_eps, dtype)
+            self.c_norm = RMSNorm(c.d_state, inner_norm_eps, dtype)
 
     def init_weights(self, g: torch.Generator) -> None:
         """mamba-ssm's init: S4D-real ``A[d, n] = -(n + 1)``; dt_proj weights
@@ -112,16 +121,29 @@ class MambaBlock(nn.Module):
         # row-parallel, then replicated input to the local dt_proj and scan
         proj = comm.copy_to_group(row_parallel(self.x_proj, x_conv, self.tp_group), self.tp_group)
         dt_raw, Bm, Cm = torch.split(proj, [r, c.d_state, c.d_state], dim=-1)
+        if self.inner_norms:
+            dt_raw, Bm, Cm = self.dt_norm(dt_raw), self.b_norm(Bm), self.c_norm(Cm)
         dt = F.softplus(self.dt_proj(dt_raw).to(torch.float32))
         return dt, Bm, Cm
 
-    def forward(self, x: torch.Tensor, state: Optional[MambaState] = None
-                ) -> Tuple[torch.Tensor, MambaState]:
-        """Full sequence: x (B, T, d_model) -> (y, new state)."""
+    def forward(self, x: torch.Tensor, state: Optional[MambaState] = None,
+                lengths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, MambaState]:
+        """Full sequence: x (B, T, d_model) -> (y, new state).  ``lengths``
+        (B,): row b's state is the one after its first ``lengths[b]``
+        positions (its conv window ends there, and dt is 0 beyond it, so
+        that the scan carries the state unchanged through the padding);
+        outputs past a row's length are not meaningful."""
         xin, z = self._in_proj(x)
         x_conv, conv_state = self._conv_full(xin, state.conv if state is not None else None)
         x_conv = F.silu(x_conv)
         dt, Bm, Cm = self._ssm_inputs(x_conv)
+        if lengths is not None:
+            T, k = x.shape[1], self.cfg.d_conv
+            valid = torch.arange(T, device=x.device)[None] < lengths[:, None]
+            dt = dt * valid[..., None]
+            xp = torch.cat([xin.new_zeros((xin.shape[0], k - 1, xin.shape[2])), xin], dim=1)
+            idx = lengths[:, None] + torch.arange(k - 1, device=x.device)[None]
+            conv_state = torch.gather(xp, 1, idx[..., None].expand(-1, -1, xin.shape[2]))
         A = -torch.exp(self.A_log)
         if self.sp_mesh is not None and state is None:
             y, ssm_state = sp_selective_scan(

@@ -22,6 +22,10 @@ over its "data" axis: then every loss that normalises over the batch sums
 its numerator and its denominator over "data" before dividing, so a
 data-parallel step is the global batch's step.  ``sp_mesh`` time-shards
 the decoder's scans (``cfg.decoder.use_sp_scan``).
+
+``cfg.decoder.block == "jamba"`` puts the jamba decoder of
+``models/hybrid.py`` in the decoder's place (one device, no mesh): the same
+losses, its conditioning a prefix instead of cross-attention and FiLM.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch.nn as nn
 
 from mamba_tts_torch.config import TTSConfig
 from mamba_tts_torch.models.decoder import MambaTTSDecoder
+from mamba_tts_torch.models.hybrid import HybridDecoder
 from mamba_tts_torch.models.smsd import SMSD, sample_mixture
 from mamba_tts_torch.models.style import StyleConditioningPipeline
 from mamba_tts_torch.models.text_encoder import DurationPredictor, TextEncoder, duration_loss
@@ -70,7 +75,12 @@ class MambaTTS(nn.Module):
         self.text_encoder = TextEncoder(cfg.text_encoder)
         self.dur_predictor = DurationPredictor(cfg.duration)
         self.smsd = SMSD(cfg.smsd)
-        self.decoder = MambaTTSDecoder(cfg.decoder.with_mamba_dims(), sp_mesh, mesh)
+        if cfg.decoder.hybrid:
+            if mesh is not None or sp_mesh is not None:
+                raise ValueError("the jamba decoder runs on one device (no mesh)")
+            self.decoder = HybridDecoder(cfg.decoder, cfg.text_encoder.d_model)
+        else:
+            self.decoder = MambaTTSDecoder(cfg.decoder.with_mamba_dims(), sp_mesh, mesh)
         self.shardings = None  # name -> Split on "model" (or None), with tensor parallelism
         if axis_size(mesh, "model") > 1:
             with torch.device("meta"):  # the full model's shapes, no storage

@@ -58,6 +58,29 @@
 //     writes its channels of the output row.
 // No float atomics, one launch a call: the call is capturable in a CUDA
 // graph and a rerun is bit-identical.
+//
+// decode_attention_grouped_kernel<HD> is the jamba block's causal
+// self-attention at one query (models/attention.py SelfAttention.step):
+// head_dim HD (128), G query heads on each K/V head (multi-query at
+// G = H), over a static K/V cache whose valid keys the mask gives.  The
+// rounding points are the ones above.  One cluster of S blocks serves one
+// (row, K/V head, group of Gb query heads) unit: the G heads of a K/V head
+// split into HG = G / Gb groups so that the grid fills the card (at B = 16
+// and G = 20, groups of 4), and a K/V tile is read for Gb heads at once,
+// not once a head (the HG groups' reads of one tile mostly hit the L2);
+// a block's shared memory stays under half an SM's, so two blocks share
+// an SM:
+//   - q's Gb heads go to shared memory as f32; scores: 16-byte chunks of a
+//     K row on HD/8 lanes, each chunk unpacked once and dotted with 4
+//     heads' q at a time, summed by independent shuffles; the scores
+//     [Gb][slice] stay in shared memory (a slice too long for them has no
+//     plan), K and V come in tiles;
+//   - the softmax runs a warp a head: the slice maxima, then the sums, of
+//     every head go to every rank by st.async into the mbarriers;
+//   - P V: a thread owns (key group, head, 8 channels) accumulators in
+//     shared memory (4 key groups, summed in order at the end), so a V tile
+//     is read once for every head; channel c of each head is owned by rank
+//     c % S, which sums the S partials in rank order.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -329,6 +352,231 @@ decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ K,
   }
 }
 
+// ---------------------------------------------------------------- grouped
+
+constexpr int kKeyGroups = 4;  // P V accumulators a (head, channel): keys t % 4
+constexpr int kHeadStep = 4;   // heads scored together, for independent shuffles
+
+// Shared memory of the grouped kernel, for Gb heads a block: K and V tiles
+// [Tt][HD] bf16, the slice's scores [Gb][Tc] f32, q [Gb][HD] f32, the
+// received maxima and sums [Gb][kMaxCluster] each, the P V accumulators
+// [kKeyGroups][Gb][HD], the received partials [Gb][kMaxCluster][own] (own
+// = ceil(HD / S) channels a head a rank), then X_COUNT mbarriers at an
+// 8-byte boundary in 32 bytes.
+size_t grouped_smem_bytes(int HD, int Gb, int S, int Tc, int Tt) {
+  const size_t own = (HD + S - 1) / S;
+  const size_t floats = (size_t)Gb * Tc + (size_t)Gb * HD + 2 * (size_t)Gb * kMaxCluster +
+                        (size_t)kKeyGroups * Gb * HD + (size_t)Gb * kMaxCluster * own;
+  return (size_t)Tt * HD * 4 + ((floats * 4 + 7) / 8) * 8 + 32;
+}
+
+template <int HD>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t row0, int ld, int j,
+                                          int Tt, int m) {
+  constexpr int CH = HD * 2 / 16;
+  const size_t first = row0 + (size_t)j * Tt * ld;
+  for (int i = threadIdx.x; i < m * CH; i += kThreads)
+    cp_async16(dst + i * 8, src + first + (size_t)(i / CH) * ld + (i % CH) * 8);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Grid (S, Hkv * HG, B), cluster (S, 1, 1).  blockIdx.y = kvh * HG + hg:
+// the block serves query heads kvh*G + hg*Gb .. + Gb - 1 (G = HG * Gb
+// heads share K/V head kvh).  q (B, Hkv*G*HD); K, V: element (b, kvh, t,
+// c) at (b*Tm + t)*Hkv*HD + kvh*HD + c.  The slice's scores stay in shared
+// memory; K and V come in tiles of Tt keys.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_grouped_kernel(const bf16* __restrict__ q, const bf16* __restrict__ K,
+                                const bf16* __restrict__ V, const uint8_t* __restrict__ mask,
+                                bf16* __restrict__ out, int Hkv, int HG, int Gb, int Tm, int Tc,
+                                int Tt, float scale) {
+  constexpr int CH = HD * 2 / 16;      // 16-byte chunks of a row
+  constexpr int KPP = kThreads / CH;   // keys a pass of the scores
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int kvh = blockIdx.y / HG, hg = blockIdx.y % HG, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ld = Hkv * HD;
+  const size_t head0 = ((size_t)b * Hkv * HG + blockIdx.y) * Gb * HD;  // this block's q, out
+  const int t0 = rank * Tc;
+  const int n = max(0, min(Tc, Tm - t0));
+  const int tiles = (n + Tt - 1) / Tt;
+  const int own = (HD + S - 1) / S;
+
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + (size_t)Tt * HD;
+  float* sc = reinterpret_cast<float*>(vs + (size_t)Tt * HD);
+  float* qs = sc + (size_t)Gb * Tc;
+  float* smax = qs + (size_t)Gb * HD;
+  float* ssum = smax + (size_t)Gb * kMaxCluster;
+  float* acc = ssum + (size_t)Gb * kMaxCluster;
+  float* orecv = acc + (size_t)kKeyGroups * Gb * HD;
+  const size_t used = (size_t)(orecv + (size_t)Gb * kMaxCluster * own - sc) * 4;
+  uint64_t* mbar =
+      reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(sc) + (used + 7) / 8 * 8);
+
+  const size_t row0 = ((size_t)b * Tm + t0) * ld + (size_t)kvh * HD;
+  load_rows<HD>(ks, K, row0, ld, 0, Tt, min(Tt, n));
+  load_rows<HD>(vs, V, row0, ld, 0, Tt, min(Tt, n));
+
+  if (tid == 0) {
+    const int owned = (HD - rank + S - 1) / S;
+    const int bytes[X_COUNT] = {4 * (S - 1) * Gb, 4 * (S - 1) * Gb, 4 * (S - 1) * Gb * owned};
+    for (int x = 0; x < X_COUNT; ++x)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(mbar + x)));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int x = 0; x < X_COUNT; ++x)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(smem_u32(mbar + x)), "r"(bytes[x]) : "memory");
+  }
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+
+  for (int i = tid; i < Gb * HD; i += kThreads) qs[i] = __bfloat162float(q[head0 + i]);
+  for (int i = tid; i < kKeyGroups * Gb * HD; i += kThreads) acc[i] = 0.0f;
+
+  // Scores, tile by tile: CH lanes a key, KPP keys a pass; each K chunk is
+  // unpacked once and dotted with kHeadStep heads' q at a time, whose sums
+  // by shuffles are independent.  Trip counts are the same for every
+  // thread, so the shuffles see whole warps.
+  const int js = lane % CH, kl = tid / CH;
+  for (int j = 0; j < tiles; ++j) {
+    const int base = j * Tt, m = min(Tt, n - base);
+    if (j == 0) {
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      __syncthreads();
+      load_rows<HD>(ks, K, row0, ld, j, Tt, m);
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();  // everyone's K chunks, and q
+    for (int p = 0; p < m; p += KPP) {
+      const int t = p + kl;
+      float kv[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      float bias = 0.0f;
+      if (t < m) {
+        unpack8(*reinterpret_cast<const uint4*>(ks + t * HD + js * 8), kv);
+        if (mask != nullptr && !mask[(size_t)b * Tm + t0 + base + t]) bias = kMasked;
+      }
+      for (int g0 = 0; g0 < Gb; g0 += kHeadStep) {
+        float a[kHeadStep];
+#pragma unroll
+        for (int u = 0; u < kHeadStep; ++u) {
+          a[u] = 0.0f;
+          if (g0 + u < Gb) {
+            const float* qg = qs + (g0 + u) * HD + js * 8;
+            const float4 q0 = *reinterpret_cast<const float4*>(qg);
+            const float4 q1 = *reinterpret_cast<const float4*>(qg + 4);
+            a[u] = fmaf(q0.x, kv[0], a[u]);
+            a[u] = fmaf(q0.y, kv[1], a[u]);
+            a[u] = fmaf(q0.z, kv[2], a[u]);
+            a[u] = fmaf(q0.w, kv[3], a[u]);
+            a[u] = fmaf(q1.x, kv[4], a[u]);
+            a[u] = fmaf(q1.y, kv[5], a[u]);
+            a[u] = fmaf(q1.z, kv[6], a[u]);
+            a[u] = fmaf(q1.w, kv[7], a[u]);
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < CH; off <<= 1)
+#pragma unroll
+          for (int u = 0; u < kHeadStep; ++u) a[u] += __shfl_xor_sync(0xffffffffu, a[u], off);
+        if (t < m && js == 0)
+#pragma unroll
+          for (int u = 0; u < kHeadStep; ++u)
+            if (g0 + u < Gb)
+              sc[(size_t)(g0 + u) * Tc + base + t] = __fadd_rn(__fmul_rn(a[u], scale), bias);
+      }
+    }
+  }
+  __syncthreads();  // the scores
+
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  // the softmax, a warp a head: slice max, then (after every rank's) the
+  // exps and the slice sum, then the probabilities
+  for (int g = warp; g < Gb; g += kWarps) {
+    float mx = -3.0e38f;
+#pragma unroll 4
+    for (int t = lane; t < n; t += 32) mx = fmaxf(mx, sc[(size_t)g * Tc + t]);
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane < S) push(smax + g * kMaxCluster + rank, lane, rank, mbar + X_MAX, mx);
+  }
+  __syncthreads();
+  wait_landed(mbar + X_MAX);
+  for (int g = warp; g < Gb; g += kWarps) {
+    float gmax = smax[g * kMaxCluster];
+    for (int r = 1; r < S; ++r) gmax = fmaxf(gmax, smax[g * kMaxCluster + r]);
+    float sum = 0.0f;
+#pragma unroll 4
+    for (int t = lane; t < n; t += 32) {
+      const float e = expf(sc[(size_t)g * Tc + t] - gmax);
+      sc[(size_t)g * Tc + t] = e;
+      sum += e;
+    }
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane < S) push(ssum + g * kMaxCluster + rank, lane, rank, mbar + X_SUM, sum);
+  }
+  __syncthreads();
+  wait_landed(mbar + X_SUM);
+  for (int g = warp; g < Gb; g += kWarps) {
+    float gsum = 0.0f;
+    for (int r = 0; r < S; ++r) gsum += ssum[g * kMaxCluster + r];  // rank order
+#pragma unroll 4
+    for (int t = lane; t < n; t += 32)
+      sc[(size_t)g * Tc + t] =
+          __bfloat162float(__float2bfloat16(__fdiv_rn(sc[(size_t)g * Tc + t], gsum)));
+  }
+
+  // P V, tile by tile: item i = (key group, head, 8 channels), its
+  // accumulators in shared memory, keys t = group, group + 4, ...
+  const int items = kKeyGroups * Gb * CH;
+  for (int j = 0; j < tiles; ++j) {
+    const int base = j * Tt, m = min(Tt, n - base);
+    if (j > 0) {
+      __syncthreads();  // every thread is done with the last V tile
+      load_rows<HD>(vs, V, row0, ld, j, Tt, m);
+    }
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();  // everyone's V chunks, and the probabilities
+    for (int i = tid; i < items; i += kThreads) {
+      const int kg = i / (Gb * CH), g = (i / CH) % Gb, c8 = i % CH;
+      float* o = acc + ((size_t)kg * Gb + g) * HD + c8 * 8;
+      float r[8];
+#pragma unroll
+      for (int x = 0; x < 8; ++x) r[x] = o[x];
+      const float* pr = sc + (size_t)g * Tc + base;
+#pragma unroll 4
+      for (int t = kg; t < m; t += kKeyGroups) {
+        float v[8];
+        unpack8(*reinterpret_cast<const uint4*>(vs + t * HD + c8 * 8), v);
+        const float pt = pr[t];
+#pragma unroll
+        for (int x = 0; x < 8; ++x) r[x] = fmaf(pt, v[x], r[x]);
+      }
+#pragma unroll
+      for (int x = 0; x < 8; ++x) o[x] = r[x];
+    }
+  }
+  __syncthreads();  // the accumulators
+  for (int i = tid; i < Gb * HD; i += kThreads) {
+    const int g = i / HD, c = i % HD;
+    float part = 0.0f;
+    for (int kg = 0; kg < kKeyGroups; ++kg) part += acc[((size_t)kg * Gb + g) * HD + c];
+    push(orecv + ((size_t)g * kMaxCluster + rank) * own + c / S, c % S, rank, mbar + X_OUT, part);
+  }
+  __syncthreads();  // this block's own slots
+  wait_landed(mbar + X_OUT);
+  for (int i = tid; i < Gb * HD; i += kThreads) {
+    const int g = i / HD, c = i % HD;
+    if (c % S != rank) continue;
+    float a = 0.0f;
+    for (int r = 0; r < S; ++r) a += orecv[((size_t)g * kMaxCluster + r) * own + c / S];
+    out[head0 + (size_t)g * HD + c] = __float2bfloat16(a);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -371,6 +619,43 @@ int decode_attention_launch(const void* q, const void* K, const void* V, const v
                                  static_cast<const bf16*>(K), static_cast<const bf16*>(V),
                                  static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
                                  static_cast<float*>(ws), H, Tm, Tc, Tt, scale);
+}
+
+// The grouped kernel: q (B, Hkv*HG*Gb*HD), K and V the (B, Hkv, Tm, HD)
+// views of (B, Tm, Hkv, HD) caches, HD 128, HG blocks of Gb query
+// heads on each K/V head; the plan's rules as above.
+int decode_attention_grouped_launch(const void* q, const void* K, const void* V,
+                                    const void* mask, void* out, int B, int Hkv, int HG, int Gb,
+                                    int HD, int Tm, int S, int Tc, int Tt,
+                                    long long smem_bytes_plan, float scale, void* stream) {
+  const size_t smem = Tt > 0 && Gb > 0 && S > 0 ? grouped_smem_bytes(HD, Gb, S, Tc, Tt) : 0;
+  if (B < 1 || Hkv < 1 || HG < 1 || (long long)Hkv * HG > 65535 || B > 65535 || Gb < 1 ||
+      HD != 128 || Tm < 1 || S < 1 || S > kMaxCluster || Tt < kKeyAlign ||
+      Tt % kKeyAlign || Tc % kKeyAlign || Tt > Tc || (long long)S * Tc < Tm ||
+      (long long)(S - 1) * Tc >= Tm || smem > (size_t)kMaxSmem ||
+      (long long)smem != smem_bytes_plan)
+    return (int)cudaErrorInvalidValue;
+  void (*kernel)(const bf16*, const bf16*, const bf16*, const uint8_t*, bf16*, int, int, int,
+                 int, int, int, float) = decode_attention_grouped_kernel<128>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, Hkv * HG, B);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(q),
+                                 static_cast<const bf16*>(K), static_cast<const bf16*>(V),
+                                 static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), Hkv,
+                                 HG, Gb, Tm, Tc, Tt, scale);
 }
 
 const char* decode_attention_error_string(int err) {

@@ -737,6 +737,52 @@ def test_decode_attention_rejects_what_it_does_not_take(card):
         da._launch(q, K, V, mask, 1.0, plan._replace(workspace=2 * 2 * plan.cluster * plan.keys))
 
 
+CROSS_ATTENTION_OUTPUTS = {  # sha256 (first 16 hex) of the kernel's bf16 outputs, as first built
+    (8, 8, 1536): "ef23f3fd93c58cf1", (1, 8, 1536): "688594965997b756",
+    (2, 8, 20000): "94f7a53814dab8f0", (3, 2, 77): "33152f155c2d9b59"}
+
+
+@pytest.mark.parametrize("B,H,Tm", list(CROSS_ATTENTION_OUTPUTS))
+def test_cross_attention_kernel_gives_the_outputs_it_gave(card, B, H, Tm):
+    """The head_dim-64 kernel with one K/V head a query head (the MAVE
+    decoder's cross-attention) gives bit for bit the outputs it gave before
+    the grouped kernel joined its source: the hashes were read on an H100
+    from the source as it stood then, on these seeded inputs."""
+    import hashlib
+
+    g = torch.Generator().manual_seed(B * 1000 + Tm)
+    q = torch.randn((B, 1, H * 64), generator=g).bfloat16().to(card)
+    mem = torch.randn((2, B, Tm, H * 64), generator=g).bfloat16().to(card)
+    K = mem[0].reshape(B, Tm, H, 64).transpose(1, 2)
+    V = mem[1].reshape(B, Tm, H, 64).transpose(1, 2)
+    mask = (torch.rand((B, Tm), generator=g) > 0.1).to(card)
+    y = da.decode_attention(q, K, V, mask, 0.125)
+    got = hashlib.sha256(y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+    assert got == CROSS_ATTENTION_OUTPUTS[(B, H, Tm)]
+
+
+@pytest.mark.parametrize("hd,G,Hkv,B,Tm", [(128, 20, 1, 16, 4100), (128, 20, 1, 1, 1538),
+                                            (128, 2, 3, 2, 9000)])
+def test_grouped_decode_attention_on_card(card, hd, G, Hkv, B, Tm):
+    """The grouped kernel (the jamba decoder's self-attention step) against
+    its plain version at 2e-2 of the largest output, a rerun bit-identical,
+    one device kernel a call (graph nodes, as above); K/V are views of a
+    (B, Tm, H_kv, hd) cache, as ``SelfAttention.step`` hands them."""
+    g = torch.Generator(device=card).manual_seed(hd + G + B + Tm)
+    cache = torch.randn((2, B, Tm, Hkv, hd), generator=g, device=card).bfloat16()
+    K, V = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    q = torch.randn((B, 1, Hkv * G * hd), generator=g, device=card).bfloat16()
+    mask = torch.arange(Tm, device=card)[None] < (Tm - 5 * torch.arange(B, device=card))[:, None]
+    got = da.decode_attention(q, K, V, mask, hd ** -0.5)
+    again = da.decode_attention(q, K, V, mask, hd ** -0.5)
+    want = da.decode_attention_ref(q, K, V, mask, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and _rel(got, want) <= 2e-2
+    assert torch.equal(got, again)
+    assert _captured_node_types(card, lambda: [da.decode_attention(q, K, V, mask, hd ** -0.5)
+                                                for _ in range(3)]) == [CU_GRAPH_NODE_KERNEL] * 3
+
+
 def _flash_case(card, Bz, H, Tq, Tk, seed):
     g = torch.Generator(device=card).manual_seed(seed)
     q, K, V = (torch.randn((Bz, H, T, 64), generator=g, device=card).bfloat16()
