@@ -33,6 +33,23 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              B = 1: the tolerance of 2b; reruns bit-identical; ms per call
              beside the plain version and the bound (each valid K/V byte
              once, q and the output, at 3.35 TB/s).
+2d. mamba step — ``conv_step`` and ``ssm_step`` (the Mamba decode step
+             between its projections, both captured decodes) against their
+             plain versions ``conv_step_ref`` and ``ssm_step_ref`` on the
+             card at narration's shape (B = 8, d_inner 1,024, f32 taps, no
+             inner norms) and the jamba mixer's (B = 16, d_inner 5,120, bf16
+             taps, the B/C RMSNorms), the operands laid out as the decode
+             lays them (x and z halves, B and C slices of one projection
+             each): the new window equal, x_conv and y within a bf16 unit
+             (2^-7 of the largest; y 2^-6 with the norms, which round B and
+             C to bf16 after sums of squares in another order), the state
+             within 1e-4 of its largest (2^-8 with the norms); the in-place
+             form equal to the functional one; reruns bit-identical; µs per
+             call (CUDA events, the window and the state rotated through
+             more than twice the L2) beside each plain version, the plain
+             chain with the decode's two carry copies, and the byte bound
+             (every operand read once, the window, the state and the
+             outputs written once, at 3.35 TB/s).
 3. slice   — serve through ``load_synthesizer(TTSConfig(), quant=...)`` at full
              default width with seeded random weights: (a) int8_kv, 256 frames
              (3.2 s, 1,280 tokens; 1,024 frames before the megakernel requests
@@ -61,8 +78,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              CLI's default, whose step loop is captured too: (a') B=1, 256
              frames and (d') 1,024 frames (wall, decode ms per step, RTF; no
              int8_matvec or megakernel launch, and exactly n_layers
-             ``decode_attention`` executions a decode step, the graph's
-             replays counted); the captured decode against
+             ``decode_attention`` and 2 * n_layers Mamba step kernel
+             executions a decode step, the graph's replays counted); the
+             captured decode against
              the eager in-place step loop over 256 steps (equal tokens,
              bit-identical logits), both timed; torch.profiler over 32
              steps of the eager loop (device busy and idle share, kernels
@@ -131,8 +149,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              config on what phase 12 wrote: the CLI's config, checkpoint 6's
              parameters bit for bit (``style_pipe`` included), not the
              seeded init, load seconds; one 128-frame request each with
-             quant none, int8 (6 x n_layers int8_matvec executions a step)
-             and megakernel (one launch); the megakernel on the trained
+             quant none (2 x n_layers Mamba step kernel executions a step),
+             int8 (6 x n_layers int8_matvec executions a step) and
+             megakernel (one launch); the megakernel on the trained
              weights against its plain version, teacher-forced (phase 6's
              limits).
 12c. released weights — FACodec and BERT state dicts in the released
@@ -491,6 +510,119 @@ def phase_grouped_attention(torch, iters=200, Tm=4100, G=20, hd=128):
     return rows
 
 
+MAMBA_STEP_CASES = [  # (name, B, d_inner, dt_rank, taps dtype, inner norms)
+    ("narration", 8, 1024, 32, "float32", False), ("jamba", 16, 5120, 160, "bfloat16", True)]
+
+
+def _mamba_step_bytes(B, Dm, N, K, tap_bytes, norms):
+    """Each operand read once, the window, the state and the outputs written
+    once: (conv_step's bytes, ssm_step's)."""
+    conv = 2 * B * (K - 1) * Dm * 2 + B * Dm * 2 + K * Dm * tap_bytes + Dm * 4 + B * Dm * 2
+    ssm = (3 * B * Dm * 2 + 2 * B * N * 2 + Dm * N * 4 + Dm * 4 + (2 * N * 4 if norms else 0)
+           + 2 * B * N * Dm * 4 + B * Dm * 2)
+    return conv, ssm
+
+
+def phase_mamba_step(torch, iters=100, plain_iters=8, N=16, K=4, eps=1e-6):
+    """Phase 2d: see the module docstring.  The plain versions run about 30
+    kernels a call, so they are timed over ``plain_iters`` calls: all their
+    launches fit the launch queue while the sleep kernel holds the stream.
+    Returns one row a case."""
+    from mamba_tts_torch.models.layers import RMSNorm
+    from mamba_tts_torch.ops import mamba_step as ms
+
+    def rel(got, want):
+        got, want = got.float(), want.float()
+        return float((got - want).abs().max() / want.abs().max())
+
+    rows = []
+    for name, B, Dm, r, taps, with_norms in MAMBA_STEP_CASES:
+        g = torch.Generator(device="cuda").manual_seed(B * 100_000 + Dm)
+
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=g, device="cuda") * scale
+
+        xz = randn(B, 2 * Dm).bfloat16()  # in_proj's output: x and z halves
+        xin, z = xz[:, :Dm], xz[:, Dm:]
+        proj = randn(B, r + 2 * N).bfloat16()  # x_proj's output: dt_raw, B, C
+        Bm, Cm = proj[:, r:r + N], proj[:, r + N:]
+        window = randn(B, K - 1, Dm).bfloat16()
+        w = randn(K, Dm, scale=0.5).to(getattr(torch, taps))
+        b = randn(Dm, scale=0.1)
+        dt = (randn(B, Dm) - 4.0).bfloat16()  # softplus^-1 of about [1e-3, 0.1]
+        A_log = torch.log(torch.arange(1, N + 1, device="cuda", dtype=torch.float32)).expand(
+            Dm, N).contiguous()
+        D = 1.0 + randn(Dm, scale=0.1)
+        h = randn(B, N, Dm)
+        norms = None
+        if with_norms:
+            norms = tuple(RMSNorm(N, eps, torch.bfloat16).cuda() for _ in range(2))
+            for n in norms:
+                n.weight.data = 1.0 + randn(N, scale=0.1)
+        with torch.no_grad():
+            x_conv, new_window = ms.conv_step(xin, window, w, b)
+            x_conv2, new_window2 = ms.conv_step(xin, window, w, b)
+            want_x, want_window = ms.conv_step_ref(xin, window, w, b)
+            u = want_x.contiguous()
+            y, h_new = ms.ssm_step(dt, A_log, u, z, Bm, Cm, D, h, norms)
+            y2, h_new2 = ms.ssm_step(dt, A_log, u, z, Bm, Cm, D, h, norms)
+            want_y, want_h = ms.ssm_step_ref(dt, A_log, u, z, Bm, Cm, D, h, norms)
+            win_in, h_in = window.clone(), h.clone()
+            x_conv3, win_in = ms.conv_step(xin, win_in, w, b, inplace=True)
+            y3, h_in = ms.ssm_step(dt, A_log, u, z, Bm, Cm, D, h_in, norms, inplace=True)
+        torch.cuda.synchronize()
+        errs = {"x_conv": rel(x_conv, want_x), "state": rel(h_new, want_h), "y": rel(y, want_y)}
+        lims = {"x_conv": 2.0 ** -7, "state": 2.0 ** -8 if with_norms else 1e-4,
+                "y": 2.0 ** -6 if with_norms else 2.0 ** -7}
+        check(torch.equal(new_window, want_window), f"mamba conv_step {name}: the window differs")
+        for k, e in errs.items():
+            check(e <= lims[k], f"mamba step {name}: {k} error {e} over {lims[k]} of its largest")
+        check(torch.equal(x_conv, x_conv2) and torch.equal(new_window, new_window2)
+              and torch.equal(y, y2) and torch.equal(h_new, h_new2),
+              f"mamba step {name}: reruns differ")
+        check(torch.equal(x_conv3, x_conv) and torch.equal(win_in, new_window)
+              and torch.equal(y3, y) and torch.equal(h_in, h_new),
+              f"mamba step {name}: the in-place form differs from the functional one")
+        # timing: the window and the state rotated through > 2x L2, as the
+        # decode's 8 or 26 layers stream them from device memory
+        conv_bytes, ssm_bytes = _mamba_step_bytes(B, Dm, N, K, w.element_size(), with_norms)
+        R = max(1, -(-2 * L2_BYTES // (window.nbytes + h.nbytes)))
+        states = [(window.clone(), h.clone()) for _ in range(R)]
+
+        def chain(i):
+            win, hh = states[i % R]
+            xc, nw = ms.conv_step_ref(xin, win, w, b)
+            yy, nh = ms.ssm_step_ref(dt, A_log, xc, z, Bm, Cm, D, hh, norms)
+            win.copy_(nw)
+            hh.copy_(nh)
+
+        with torch.no_grad():
+            t = {
+                "conv_step_ms": device_ms(torch, lambda i: ms.conv_step(
+                    xin, states[i % R][0], w, b, inplace=True), iters, 200.0),
+                "ssm_step_ms": device_ms(torch, lambda i: ms.ssm_step(
+                    dt, A_log, u, z, Bm, Cm, D, states[i % R][1], norms, inplace=True),
+                    iters, 200.0),
+                "conv_step_plain_ms": device_ms(torch, lambda i: ms.conv_step_ref(
+                    xin, states[i % R][0], w, b), plain_iters, 200.0),
+                "ssm_step_plain_ms": device_ms(torch, lambda i: ms.ssm_step_ref(
+                    dt, A_log, u, z, Bm, Cm, D, states[i % R][1], norms), plain_iters, 200.0),
+                "plain_chain_ms": device_ms(torch, chain, plain_iters, 200.0),
+            }
+        row = {"phase": "mamba_step", "case": name, "B": B, "d_inner": Dm, "d_state": N,
+               "taps": taps, "inner_norms": with_norms, "max_rel_err": errs, "limits": lims,
+               **t, "conv_step_bound_ms": conv_bytes / HBM_BYTES_PER_S * 1e3,
+               "ssm_step_bound_ms": ssm_bytes / HBM_BYTES_PER_S * 1e3,
+               "conv_step_bytes": conv_bytes, "ssm_step_bytes": ssm_bytes, "bound_by": "bytes",
+               "state_copies": R}
+        row["conv_step_bound_share"] = row["conv_step_bound_ms"] / t["conv_step_ms"]
+        row["ssm_step_bound_share"] = row["ssm_step_bound_ms"] / t["ssm_step_ms"]
+        emit(row)
+        rows.append(row)
+        del states
+    return rows
+
+
 def _voice(seconds=3.0, sr=16000, seed=0):
     import numpy as np
 
@@ -787,30 +919,34 @@ def _timed_request(torch, synth, fn, frames, batch, row):
 
 def _zero_counts():
     from mamba_tts_torch.ops import decode_megakernel as mk
+    from mamba_tts_torch.ops import mamba_step
     from mamba_tts_torch.ops.decode_attention import decode_attention
     from mamba_tts_torch.ops.int8_matvec import int8_matvec
 
     mk._megakernel_call.launches = 0
     int8_matvec.launches = 0
     decode_attention.launches = 0
+    mamba_step.launches = 0
     return lambda: {"int8_matvec": int8_matvec.launches,
                     "decode_megakernel": mk._megakernel_call.launches,
-                    "decode_attention": decode_attention.launches}
+                    "decode_attention": decode_attention.launches,
+                    "mamba_step": mamba_step.launches}
 
 
 def phase_default_decode(torch, voice, eager_steps=256, eager_profiled=32,
                          profile_frames=(8, 24)):
     """``quant="none"``, the CLI's default, at full width: (a') B=1, 256
     frames and (d') the flagship, 1,024 frames, through the captured decode
-    (its one custom kernel, ``decode_attention``, launched once a layer a
-    step; the rest is plain products); the captured decode
+    (its custom kernels: ``decode_attention`` once a layer a step, the
+    Mamba step's two kernels twice; the rest is plain products); the
+    captured decode
     against the eager in-place step loop over its first 256 steps (equal
     tokens, bit-identical logits), both timed; torch.profiler over the eager
     loop's next 32 steps (device busy, idle share against the unprofiled
     wall of the 32 steps before them, as phase 5 does for the int8 loop) and
     over the served decode at 8 and 24 frames (fewer than phase 5's, to keep
     the profiler's cost down).  Returns the synthesizer and the
-    ``decode_attention`` launches of (a') and (d')."""
+    ``decode_attention`` and Mamba step launches of (a') and (d')."""
     from torch.profiler import ProfilerActivity, profile
 
     from mamba_tts_torch.config import TTSConfig
@@ -822,7 +958,7 @@ def phase_default_decode(torch, voice, eager_steps=256, eager_profiled=32,
     synth = load_synthesizer(cfg, seed=0, quant="none", device="cuda")
     torch.cuda.synchronize()
     emit({"phase": "default_decode", "setup_seconds": time.perf_counter() - t0})
-    launches = 0
+    launches = {"decode_attention": 0, "mamba_step": 0}
     for tag, frames in (("a'_none_3.2s", 256), ("d'_none_12.8s", 1024)):
         read = _zero_counts()
         row = _timed_request(torch, synth, lambda: synth.synthesize(TEXT, STYLE, voice, frames=frames),
@@ -830,10 +966,12 @@ def phase_default_decode(torch, voice, eager_steps=256, eager_profiled=32,
         n = read()
         steps = cfg.decoder.num_quantizers * frames
         want = {"int8_matvec": 0, "decode_megakernel": 0,
-                "decode_attention": cfg.decoder.n_layers * steps}
+                "decode_attention": cfg.decoder.n_layers * steps,
+                "mamba_step": 2 * cfg.decoder.n_layers * steps}
         check(n == want, f"{tag}: launches {n}, expected {want}")
-        emit({**row, "decode_attention_launches": n["decode_attention"]})
-        launches += n["decode_attention"]
+        emit({**row, "decode_attention_launches": n["decode_attention"],
+              "mamba_step_launches": n["mamba_step"]})
+        launches = {k: launches[k] + n[k] for k in launches}
 
     th, mask, rh, rm, z = _condition(torch, synth)
     dec, dc = synth.decoder, synth.decoder.cfg
@@ -1649,7 +1787,7 @@ def phase_checkpoint_serving(torch, tmp, voice, frames=128):
     with quant none, int8 and megakernel (their kernels' counts set to 0
     just before and read just after); the megakernel on the trained weights
     against its plain version, teacher-forced, at phase 6's limits.
-    Returns the two kernels' launch counts."""
+    Returns the decode kernels' launch counts."""
     from mamba_tts_torch import config as config_lib
     from mamba_tts_torch.config import TTSConfig
     from mamba_tts_torch.infer.synthesize import Synthesizer, load_synthesizer
@@ -1681,7 +1819,7 @@ def phase_checkpoint_serving(torch, tmp, voice, frames=128):
           sum(n.startswith("style_pipe.") for n in params), "moved_from_init": moved})
 
     per_step = 6 * cfg.decoder.n_layers
-    launches = {"int8_matvec": 0, "decode_megakernel": 0, "decode_attention": 0}
+    launches = {"int8_matvec": 0, "decode_megakernel": 0, "decode_attention": 0, "mamba_step": 0}
     for quant in ("none", "int8", "megakernel"):
         served = synth if quant == "megakernel" else Synthesizer(
             cfg, synth.model, tokenizer=synth.tokenizer, frontend=synth.frontend,
@@ -1694,11 +1832,12 @@ def phase_checkpoint_serving(torch, tmp, voice, frames=128):
         n = read()
         steps = cfg.decoder.num_quantizers * frames
         want = {"none": {"int8_matvec": 0, "decode_megakernel": 0,
-                         "decode_attention": cfg.decoder.n_layers * steps},
+                         "decode_attention": cfg.decoder.n_layers * steps,
+                         "mamba_step": 2 * cfg.decoder.n_layers * steps},
                 "int8": {"int8_matvec": per_step * steps, "decode_megakernel": 0,
-                         "decode_attention": 0},
+                         "decode_attention": 0, "mamba_step": 0},
                 "megakernel": {"int8_matvec": 0, "decode_megakernel": 1,
-                               "decode_attention": 0}}[quant]
+                               "decode_attention": 0, "mamba_step": 0}}[quant]
         check(n == want, f"checkpoint serving, quant={quant}: launches {n}, expected {want}")
         launches = {k: launches[k] + v for k, v in n.items()}
 
@@ -1809,7 +1948,7 @@ def phase_released_weights(torch, tmp, voice, frames=128, seed=0):
     emit(_timed_request(torch, synth, lambda: synth.synthesize(TEXT, STYLE, voice, frames=frames),
                         frames, 1, {"phase": "released_weights", "request": "released_megakernel"})[1])
     n = read()
-    check(n == {"int8_matvec": 0, "decode_megakernel": 1, "decode_attention": 0},
+    check(n == {"int8_matvec": 0, "decode_megakernel": 1, "decode_attention": 0, "mamba_step": 0},
           f"released weights: launches {n}")
     emit({"phase": "released_weights", "load_seconds": load_s, "facodec_parameters": len(codec_params),
           "bert_parameters": len(bert_keys), "fused_weights": len(fused),
@@ -2927,13 +3066,14 @@ def main():
     rows, worst = phase_kernels(torch)
     da_rows = phase_decode_attention(torch)
     ga_rows = phase_grouped_attention(torch)
+    mst_rows = phase_mamba_step(torch)
     synth, _, launches = phase_slice(torch)
     phase_parity(torch, synth)
     phase_captured_vs_eager(torch, synth)
     phase_profile(torch, synth)
     del synth
     voice = _voice()
-    synth_none, da_launches = phase_default_decode(torch, voice)
+    synth_none, none_launches = phase_default_decode(torch, voice)
     synth_mk, _, mk_launches = phase_megakernel_slice(torch, voice)
     mk_worst = phase_megakernel_kernel(torch, synth_mk)
     mk_rows, mk_one = phase_megakernel_times(torch, synth_mk, voice)
@@ -3027,13 +3167,29 @@ def main():
         "name": "decode_attention", "route": "cuda",
         "source": "mamba_tts_torch/ops/csrc/decode_attention.cu", "replaces": None,
         "jax_counterpart": "mamba_tts_tpu/models/attention.py:99 (_naive: XLA einsums, no Pallas kernel)",
-        "launches": da_launches, "max_abs_err": max(r["max_abs_err"] for r in da_rows),
+        "launches": none_launches["decode_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in da_rows),
         **{k: da_rows[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "at": "B=8, H=8, Tm=1,536 (the narration batch), ragged mask, K/V cold in L2",
         "ms_by_case": {r["case"]: r["ms"] for r in da_rows},
         "bound_ms_by_case": {r["case"]: r["bound_ms"] for r in da_rows},
         "grouped_ms_by_case": {r["case"]: r["ms"] for r in ga_rows},
         "grouped_bound_ms_by_case": {r["case"]: r["bound_ms"] for r in ga_rows},
+    }, {
+        "name": "mamba_step", "route": "cuda", "source": "mamba_tts_torch/ops/csrc/mamba_step.cu",
+        "replaces": None,
+        "jax_counterpart": "mamba_tts_tpu/models/mamba.py:175 (MambaBlock.step: XLA, no Pallas kernel)",
+        "launches": none_launches["mamba_step"],
+        "trained_weights_launches": ck_launches["mamba_step"],
+        "max_rel_err": {r["case"]: r["max_rel_err"] for r in mst_rows},
+        "ms": mst_rows[0]["conv_step_ms"] + mst_rows[0]["ssm_step_ms"],
+        "plain_ms": mst_rows[0]["conv_step_plain_ms"] + mst_rows[0]["ssm_step_plain_ms"],
+        "bound_ms": mst_rows[0]["conv_step_bound_ms"] + mst_rows[0]["ssm_step_bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "at": "conv_step + ssm_step, B=8, d_inner 1,024 (the narration batch), state cold in L2",
+        **{f"{k}_by_case": {r["case"]: r[k] for r in mst_rows}
+           for k in ("conv_step_ms", "ssm_step_ms", "conv_step_plain_ms", "ssm_step_plain_ms",
+                     "plain_chain_ms", "conv_step_bound_ms", "ssm_step_bound_ms")},
     }] + [{
         "name": k, "route": "cuda", "source": TRAIN_SOURCES[k][0], "replaces": TRAIN_SOURCES[k][1],
         "launches": train_launches[k], **train_rows[k],

@@ -44,6 +44,7 @@ from mamba_tts_torch.device import on_card
 from mamba_tts_torch.models.attention import CrossAttention
 from mamba_tts_torch.models.layers import Dense, Embed, LayerNorm, parse_dtype, row_parallel
 from mamba_tts_torch.models.mamba import MambaBlock, MambaState, init_mamba_state
+from mamba_tts_torch.ops import mamba_step
 from mamba_tts_torch.ops.decode_attention import decode_attention
 from mamba_tts_torch.parallel.comm import copy_to_group
 from mamba_tts_torch.parallel.mesh import axis_size, model_group
@@ -85,9 +86,10 @@ class DecoderLayer(nn.Module):
     def project_memory(self, memory):
         return self.cross_attn.project_memory(memory)
 
-    def step(self, x, K, V, film, memory_mask, mamba_state):
-        """One token with precomputed memory K/V and FiLM; x (B, 1, d)."""
-        h, new_state = self.mamba.step(self.norm_mamba(x), mamba_state)
+    def step(self, x, K, V, film, memory_mask, mamba_state, inplace=False):
+        """One token with precomputed memory K/V and FiLM; x (B, 1, d);
+        ``inplace`` as in ``MambaBlock.step``."""
+        h, new_state = self.mamba.step(self.norm_mamba(x), mamba_state, inplace)
         x = x + h
         x = x + self.cross_attn.attend(self.norm_cross(x), K, V, memory_mask)
         x = x + self._film_ffn_with(x, *film)
@@ -196,13 +198,15 @@ class MambaTTSDecoder(nn.Module):
         return KV, memory_mask, films
 
     def step_with_kv(self, last_token, KV, memory_mask, films, mamba_states,
-                     step: torch.Tensor, frames_per_stream: int):
+                     step: torch.Tensor, frames_per_stream: int, inplace: bool = False):
         """One decode step; last_token (B, 1) -> (logits (B, 1, V), states).
-        ``step`` is a (1,) integer tensor on the device."""
+        ``step`` is a (1,) integer tensor on the device.  ``inplace``: each
+        layer's new state is written over ``mamba_states``' tensors, which
+        are returned (the captured decode's carry)."""
         x = self._embed_step(last_token, step, frames_per_stream)
         new_states = []
         for layer, (K, V), film, st in zip(self.layers, KV, films, mamba_states):
-            x, ns = layer.step(x, K, V, film, memory_mask, st)
+            x, ns = layer.step(x, K, V, film, memory_mask, st, inplace)
             new_states.append(ns)
         return self.head(self.norm_out(x).to(torch.float32)), new_states
 
@@ -272,7 +276,8 @@ def decode_step_(step_fn, carry: DecodeCarry, num_special: int, temperature: flo
     (logits (B, 1, V), new states): ``MambaTTSDecoder.step_with_kv`` or the
     int8 ``quant_step_with_kv`` with the request's constants bound.  The next
     token and the masked logits go to column ``step`` by ``index_copy_``, the
-    states are copied over, the index advances.  The JAX step is pure and
+    states are copied over (not where ``step_fn`` returned the carry's own
+    tensors, having updated them in place), the index advances.  The JAX step is pure and
     carries its state through ``lax.scan``; the port updates in place so that
     a captured CUDA graph can replay the step on fixed buffers, with no host
     sync."""
@@ -283,8 +288,9 @@ def decode_step_(step_fn, carry: DecodeCarry, num_special: int, temperature: flo
         carry.logits.index_copy_(1, carry.step, step_logits[:, None])
     carry.token.copy_(nxt)
     for st, ns in zip(carry.states, new_states):
-        st.conv.copy_(ns.conv)
-        st.ssm.copy_(ns.ssm)
+        for old, new in zip(st, ns):
+            if new is not old:
+                old.copy_(new)
     carry.step.add_(1)
 
 
@@ -384,7 +390,9 @@ def greedy_decode(
     ``generator``.  On the card the step loop replays a captured CUDA graph
     (:func:`run_captured`), and the one-query attention kernel's executions
     (the warm-up's and the replays') are counted as
-    ``decode.attention_launches`` while tracing is on; on the CPU it runs
+    ``decode.attention_launches``, and those of the Mamba step's two kernels
+    (``ops/mamba_step.py``, updating the carry's states in place) as
+    ``decode.mamba_step_launches``, while tracing is on; on the CPU it runs
     :func:`decode_step_` eagerly."""
     c = decoder.cfg
     B = text_hidden.shape[0]
@@ -398,18 +406,20 @@ def greedy_decode(
 
     def step(token, states, index):
         return decoder.step_with_kv(token, KV, memory_mask, films, states, index,
-                                    frames_per_stream)
+                                    frames_per_stream, inplace=True)
 
     def step_fn():
         decode_step_(step, carry, c.num_special_tokens, temperature, top_k, generator)
 
     if on_card(text_hidden):
-        before = decode_attention.launches
+        before = decode_attention.launches, mamba_step.launches
         run_captured(step_fn, total, generator if temperature > 0.0 else None,
-                     counters=(decode_attention,))
-        launched = decode_attention.launches - before
-        if launched:  # a decode that does not take the kernel counts nothing
-            count("decode.attention_launches", launched)
+                     counters=(decode_attention, mamba_step))
+        # a decode that does not take a kernel counts nothing for it
+        for name, op, b in (("decode.attention_launches", decode_attention, before[0]),
+                            ("decode.mamba_step_launches", mamba_step, before[1])):
+            if op.launches - b:
+                count(name, op.launches - b)
     else:
         run_eager(step_fn, total)
     logits = (carry.logits if collect_logits

@@ -58,6 +58,7 @@ from mamba_tts_torch.models.decoder import (
 )
 from mamba_tts_torch.models.layers import Dense, Embed, RMSNorm, parse_dtype
 from mamba_tts_torch.models.mamba import MambaBlock, MambaState
+from mamba_tts_torch.ops import mamba_step
 from mamba_tts_torch.ops.decode_attention import decode_attention
 from mamba_tts_torch.utils.profiling import annotate, count
 
@@ -130,11 +131,12 @@ class HybridLayer(nn.Module):
         return x + self.mlp(self.norm_mlp(x)), state
 
     def step(self, x: torch.Tensor, state, cache, rows, pos):
-        """One token: a Mamba layer returns its new state, an attention
-        layer writes into ``cache`` = (K, V, mask) and returns None."""
+        """One token: a Mamba layer writes its new state over ``state`` and
+        returns it, an attention layer writes into ``cache`` = (K, V, mask)
+        and returns None."""
         h = self.norm_mixer(x)
         if self.kind == "mamba":
-            h, state = self.mamba.step(h, state)
+            h, state = self.mamba.step(h, state, inplace=True)
         else:
             h, state = self.attn.step(h, *cache, rows, pos), None
         x = x + h
@@ -260,9 +262,11 @@ class HybridDecoder(nn.Module):
     def step_with_cache(self, token, states: List[MambaState], cache: "HybridCache",
                         step: torch.Tensor, frames_per_stream: int):
         """One decode step at device index ``step`` (1,): token (B, 1) ->
-        (logits (B, 1, V), the Mamba layers' new states).  The attention
-        layers write the token's K/V at each row's position ``lengths +
-        step`` of ``cache`` and attend over its valid keys."""
+        (logits (B, 1, V), the Mamba layers' new states, written over
+        ``states``' tensors, which are returned: the captured decode's
+        carry).  The attention layers write the token's K/V at each row's
+        position ``lengths + step`` of ``cache`` and attend over its valid
+        keys."""
         x = self._embed_step(token, step, frames_per_stream)
         pos = cache.lengths + step
         new, it_s, it_c = [], iter(states), iter(zip(cache.K, cache.V))
@@ -322,7 +326,9 @@ def hybrid_greedy_decode(
     with ``generator``).  On the card the steps replay a captured CUDA graph
     (``run_captured``, traced as ``decode.run`` with ``path="hybrid"``) and
     the self-attention kernel's executions count as
-    ``decode.self_attention_launches``; on the CPU they run eagerly."""
+    ``decode.self_attention_launches``, those of the Mamba step's two
+    kernels (the carry's states updated in place) as
+    ``decode.mamba_step_launches``; on the CPU they run eagerly."""
     c = decoder.cfg
     B = text_hidden.shape[0]
     total = (num_streams or c.num_quantizers) * frames_per_stream
@@ -350,10 +356,11 @@ def hybrid_greedy_decode(
         decode_step_(step, carry, c.num_special_tokens, temperature, top_k, generator)
 
     if on_card(text_hidden):
-        before = decode_attention.launches
+        before = decode_attention.launches, mamba_step.launches
         run_captured(step_fn, total, generator if temperature > 0.0 else None,
-                     counters=(decode_attention,), path="hybrid")
-        count("decode.self_attention_launches", decode_attention.launches - before)
+                     counters=(decode_attention, mamba_step), path="hybrid")
+        count("decode.self_attention_launches", decode_attention.launches - before[0])
+        count("decode.mamba_step_launches", mamba_step.launches - before[1])
     else:
         run_eager(step_fn, total)
     logits = carry.logits if collect_logits else torch.zeros((B, 0), device=dev)

@@ -10,9 +10,11 @@ With ``inner_norm_eps`` (Jamba's mixer) dt_raw, B and C each pass an
 RMSNorm after ``x_proj``.
 
 Decode carries :class:`MambaState` = (conv ring buffer, SSM state), O(1) per
-step.  ``forward`` (the full-sequence path, with gradients in training) runs
-its scan through the Hopper scan kernels on the card and the plain scan on
-the CPU.
+step; ``step`` runs its conv and state update through the two kernels of
+``ops/mamba_step.py`` on the card (in place on the decode's carry) and their
+plain versions on the CPU.  ``forward`` (the full-sequence path, with
+gradients in training) runs its scan through the Hopper scan kernels on the
+card and the plain scan on the CPU.
 
 Parallelism (``parallel/``): with ``mesh`` the block shards ``d_inner`` over
 the mesh's "model" axis (``in_proj`` column-parallel, each rank taking its
@@ -38,7 +40,8 @@ import torch.nn.functional as F
 
 from mamba_tts_torch.config import MambaConfig
 from mamba_tts_torch.models.layers import Dense, RMSNorm, normal_init, row_parallel
-from mamba_tts_torch.ops.selective_scan import selective_scan, selective_scan_step
+from mamba_tts_torch.ops.mamba_step import check_state, conv_step, ssm_step
+from mamba_tts_torch.ops.selective_scan import selective_scan
 from mamba_tts_torch.parallel import comm
 from mamba_tts_torch.parallel.mesh import model_group
 from mamba_tts_torch.parallel.sp_scan import sp_selective_scan
@@ -115,14 +118,22 @@ class MambaBlock(nn.Module):
             out = out + self.conv_b.to(x.dtype)
         return out, xp[:, T:]
 
-    def _ssm_inputs(self, x_conv: torch.Tensor):
+    def _x_proj(self, x_conv: torch.Tensor):
+        """``x_proj``'s dt_raw (after ``dt_norm`` where the block has it), B
+        and C slices, the latter two before their norms."""
         c = self.cfg
         r = c.dt_rank_actual
         # row-parallel, then replicated input to the local dt_proj and scan
         proj = comm.copy_to_group(row_parallel(self.x_proj, x_conv, self.tp_group), self.tp_group)
         dt_raw, Bm, Cm = torch.split(proj, [r, c.d_state, c.d_state], dim=-1)
         if self.inner_norms:
-            dt_raw, Bm, Cm = self.dt_norm(dt_raw), self.b_norm(Bm), self.c_norm(Cm)
+            dt_raw = self.dt_norm(dt_raw)
+        return dt_raw, Bm, Cm
+
+    def _ssm_inputs(self, x_conv: torch.Tensor):
+        dt_raw, Bm, Cm = self._x_proj(x_conv)
+        if self.inner_norms:
+            Bm, Cm = self.b_norm(Bm), self.c_norm(Cm)
         dt = F.softplus(self.dt_proj(dt_raw).to(torch.float32))
         return dt, Bm, Cm
 
@@ -159,20 +170,23 @@ class MambaBlock(nn.Module):
         """Column-parallel: this rank's channels of the x half and the z half."""
         return self.in_proj(comm.copy_to_group(x.to(self.dtype), self.tp_group)).chunk(2, dim=-1)
 
-    def step(self, x_t: torch.Tensor, state: MambaState) -> Tuple[torch.Tensor, MambaState]:
-        """One token: x_t (B, 1, d_model) -> (y (B, 1, d_model), new state)."""
+    def step(self, x_t: torch.Tensor, state: MambaState, inplace: bool = False
+             ) -> Tuple[torch.Tensor, MambaState]:
+        """One token: x_t (B, 1, d_model) -> (y (B, 1, d_model), new state).
+        Between the projections, ``ops/mamba_step.py``'s ``conv_step`` and
+        ``ssm_step``: the two kernels on the card (which raise where they do
+        not take the tensors, a recorded gradient included), the plain
+        versions on the CPU.  ``inplace``: the new conv window and SSM state
+        are written over ``state``'s tensors, which are returned (the
+        captured decode's carry)."""
         xin, z = (t[:, 0] for t in self._in_proj(x_t))
-        window = torch.cat([state.conv.to(xin.dtype), xin[:, None]], dim=1)
-        conv_out = torch.einsum("bkd,kd->bd", window, self.conv_w.to(xin.dtype))
-        if self.conv_b is not None:
-            conv_out = conv_out + self.conv_b.to(xin.dtype)
-        x_conv = F.silu(conv_out)
-        dt, Bm, Cm = self._ssm_inputs(x_conv)
-        A = -torch.exp(self.A_log)
-        y, ssm_state = selective_scan_step(x_conv, dt, A, Bm, Cm, self.D, state.ssm)
-        y = y * F.silu(z)
-        return (row_parallel(self.out_proj, y, self.tp_group)[:, None],
-                MambaState(conv=window[:, 1:], ssm=ssm_state))
+        norms = (self.b_norm, self.c_norm) if self.inner_norms else None
+        check_state(self.A_log, self.D, state.ssm, norms)
+        x_conv, conv = conv_step(xin, state.conv, self.conv_w, self.conv_b, inplace)
+        dt_raw, Bm, Cm = self._x_proj(x_conv)
+        y, ssm = ssm_step(self.dt_proj(dt_raw), self.A_log, x_conv, z, Bm, Cm, self.D,
+                          state.ssm, norms, inplace)
+        return row_parallel(self.out_proj, y, self.tp_group)[:, None], MambaState(conv=conv, ssm=ssm)
 
     def init_state(self, batch: int) -> MambaState:
         return init_mamba_state(self.cfg, batch, self.dtype, self.A_log.device)

@@ -258,7 +258,9 @@ def test_graph_captures_count_one_a_captured_call_on_card(card):
     profiling.enable()
     for n in (1, 2):
         greedy_decode(dec, th, z, 9, **kw)
-        assert profiling.counters() == {"decode.graph_captures": n}
+        # and the Mamba step's two kernels, on each of 2 layers of 18 steps
+        assert profiling.counters() == {"decode.graph_captures": n,
+                                        "decode.mamba_step_launches": 72 * n}
     runs = [s for s in profiling.spans() if s.name == "decode.run"]
     assert [s.attrs["steps"] for s in runs] == [16, 16]  # 2 eager steps, 4 replays of 4
     assert all(s.attrs["path"] == "graph" and s.device_ms > 0 for s in runs)
