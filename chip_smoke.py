@@ -753,6 +753,7 @@ def phase_captured_vs_eager(torch, synth, steps=256, frames=256):
     from a replayed CUDA graph, against the eager step loop over its first
     256 steps: tokens and logits must be equal."""
     from mamba_tts_torch.infer import quant_decode as qd
+    from mamba_tts_torch.models import decoder as dm
 
     th, mask, rh, rm, z = _condition(torch, synth)
     dec, cfg = synth.decoder, synth.decoder.cfg
@@ -762,9 +763,9 @@ def phase_captured_vs_eager(torch, synth, steps=256, frames=256):
                                     int8_kv=True)
         KV, mm, films = dec.project_memories(th, mask, rh, rm, z)
         KV = qd.quantize_kv(KV)
-        carry = qd.init_carry(cfg, 1, cfg.num_quantizers * frames, dec.dtype, th.device, True)
+        carry = dm.init_carry(cfg, 1, cfg.num_quantizers * frames, dec.dtype, th.device, True)
         for _ in range(steps):
-            qd.decode_step_(lambda tok, st, i: qd.quant_step_with_kv(synth._qparams, cfg, tok, KV,
+            dm.decode_step_(lambda tok, st, i: qd.quant_step_with_kv(synth._qparams, cfg, tok, KV,
                                                                      mm, films, st, i, frames),
                             carry, cfg.num_special_tokens)
     torch.cuda.synchronize()
@@ -2887,7 +2888,7 @@ def _forced_agreement(torch, synth, rows, tokens, frames):
     whose argmax (specials masked) equals the token.  A free-running greedy
     decode at another batch size is no reference: one near-tied flip at
     random weights changes every later token."""
-    from mamba_tts_torch.infer.synthesize import _MEGAKERNEL_UNROLL, _megakernel_dtypes
+    from mamba_tts_torch.infer.synthesize import _megakernel_dtypes
     from mamba_tts_torch.ops.decode_megakernel import megakernel_greedy_decode
 
     model, dc = synth.model, synth.decoder.cfg
@@ -2904,8 +2905,7 @@ def _forced_agreement(torch, synth, rows, tokens, frames):
             tok = torch.as_tensor(tokens[i:i + 1], device="cuda")
             inp = torch.cat([torch.full_like(tok[:, :1], dc.bos_id), tok[:, :-1]], dim=1)
             if synth.quant == "megakernel":  # forced tokens are each step's input
-                wd, kvd = _megakernel_dtypes(dc, 1, rh.shape[1] + th.shape[1],
-                                             unroll_steps=_MEGAKERNEL_UNROLL)
+                wd, kvd = _megakernel_dtypes(dc, 1, rh.shape[1] + th.shape[1])
                 chosen = megakernel_greedy_decode(
                     synth.decoder, synth._qparams, th, z, frames, text_mask=mask[i:i + 1],
                     ref_hidden=rh, ref_mask=rm, forced_tokens=inp[0], weight_dtype=wd,

@@ -9,13 +9,15 @@ precision: x_proj/dt_proj, conv taps, A/D, LayerNorms, embeddings and the
 f32 vocab head.  ``int8_kv`` also stores the per-layer cross-attention K/V
 as int8 with per-(batch, head, channel) scales.
 
-The step mirrors ``MambaTTSDecoder.step_with_kv`` op for op, with the same
-f32 accumulation and bf16 rounding points as the JAX step.
+The step follows ``MambaTTSDecoder.step_with_kv`` with the JAX int8 step's
+f32 accumulation and bf16 rounding points, which depart from the default
+step in two places: the ``dt_proj`` bias is added in f32 after the product,
+and the attention is plain f32 matmuls over the K/V.
 
 The JAX package runs the whole decode as one ``jax.lax.scan`` under ``jit``:
 one device program per request.  The port's counterpart, on the card, is a
 CUDA graph of four steps captured once per call and replayed
-(``models.decoder.run_captured``, shared with the full-precision decode):
+(``models.decoder.run_step_decode``, shared with the other step decodes):
 the step reads its index from a device tensor and writes its token, logits
 and states into fixed buffers in place (``models.decoder.decode_step_``,
 also shared, given :func:`quant_step_with_kv`), so a replay
@@ -31,14 +33,11 @@ import torch.nn.functional as F
 
 from mamba_tts_torch.config import DecoderConfig
 from mamba_tts_torch.models.attention import mask_bias
-from mamba_tts_torch.device import on_card
 from mamba_tts_torch.models.decoder import (
     DecodeResult,
     MambaTTSDecoder,
-    decode_step_,
     init_carry,
-    run_captured,
-    run_eager,
+    run_step_decode,
 )
 from mamba_tts_torch.models.mamba import MambaState
 from mamba_tts_torch.ops.int8_matvec import int8_matvec, quantize_weight
@@ -221,8 +220,9 @@ def greedy_decode_int8(
 ) -> DecodeResult:
     """``greedy_decode`` with the int8 step.  Memory K/V, mask and FiLM are
     projected once at full precision; ``int8_kv`` then stores K/V as int8.
-    On the card the step loop replays a captured CUDA graph
-    (:func:`run_captured`); on the CPU it runs ``decode_step_`` eagerly."""
+    The steps run through ``models.decoder.run_step_decode``, which keeps
+    ``int8_matvec.launches`` to the kernel's executions and records no
+    counter."""
     c = decoder.cfg
     B = text_hidden.shape[0]
     total = c.num_quantizers * frames_per_stream
@@ -238,14 +238,5 @@ def greedy_decode_int8(
         return quant_step_with_kv(qparams, c, token, KV, memory_mask, films, states, index,
                                   frames_per_stream)
 
-    def step_fn():
-        decode_step_(step, carry, c.num_special_tokens, temperature, 0, generator)
-
-    if on_card(text_hidden):
-        run_captured(step_fn, total, generator if temperature > 0.0 else None,
-                     counters=(int8_matvec,))
-    else:
-        run_eager(step_fn, total)
-    logits = (carry.logits if collect_logits
-              else torch.zeros((B, 0), device=text_hidden.device))
-    return DecodeResult(tokens=carry.tokens, logits=logits)
+    return run_step_decode(step, carry, c.num_special_tokens, temperature, 0, generator,
+                           counted=((int8_matvec, None),))

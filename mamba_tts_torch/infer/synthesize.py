@@ -76,9 +76,6 @@ from mamba_tts_torch.text.processor import PhonemeFrontend
 from mamba_tts_torch.train import state as state_lib
 from mamba_tts_torch.utils.profiling import annotate
 
-# Steps per grid step of the TPU megakernel; the Hopper kernel loops over the
-# steps itself, so the value is only validated and results do not depend on it.
-_MEGAKERNEL_UNROLL = 1
 _RANK_MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant: (request seed, rank) -> a rank's stream
 
 
@@ -95,12 +92,11 @@ def _run_chunked(run, arrays, generator, chunk):
 
 
 def _megakernel_dtypes(cfg, batch: int, memory_len: int, sampled: bool = False,
-                       unroll_steps: int = 1, budget_bytes: Optional[int] = None):
+                       budget_bytes: Optional[int] = None):
     """(weight_dtype, kv_dtype) for a megakernel call at this batch and
     cross-attention memory length, or None to take the int8 step decode
     (``ops.decode_megakernel.megakernel_fit``)."""
-    return megakernel_fit(cfg, batch, memory_len, unroll_steps=unroll_steps, sampled=sampled,
-                          budget_bytes=budget_bytes)
+    return megakernel_fit(cfg, batch, memory_len, sampled=sampled, budget_bytes=budget_bytes)
 
 
 class Synthesizer:
@@ -167,8 +163,7 @@ class Synthesizer:
             with annotate("decode.plan"):
                 mega = _megakernel_dtypes(
                     self.decoder.cfg, phoneme_ids.shape[0],
-                    ref_hidden.shape[1] + text_hidden.shape[1], sampled=temperature > 0,
-                    unroll_steps=_MEGAKERNEL_UNROLL)
+                    ref_hidden.shape[1] + text_hidden.shape[1], sampled=temperature > 0)
         if self.decoder.cfg.hybrid:
             res = hybrid_greedy_decode(self.decoder, text_hidden, z_style, frames, **kw)
         elif self.quant == "none":
@@ -176,8 +171,8 @@ class Synthesizer:
         elif mega is not None:
             res = megakernel_greedy_decode(
                 self.decoder, self._qparams, text_hidden, z_style, frames,
-                unroll_steps=_MEGAKERNEL_UNROLL, weight_dtype=mega[0], kv_dtype=mega[1],
-                weight_plan=self._weight_plans[mega[0]], **kw)
+                weight_dtype=mega[0], kv_dtype=mega[1], weight_plan=self._weight_plans[mega[0]],
+                **kw)
         else:
             res = greedy_decode_int8(self.decoder, self._qparams, text_hidden, z_style, frames,
                                      int8_kv=self.quant == "int8_kv", **kw)
@@ -252,9 +247,8 @@ class Synthesizer:
         if self.quant == "megakernel":
             Q = self.cfg.decoder.num_quantizers
             memory_len = arrays[3].shape[1] * Q + arrays[0].shape[1]
-            chunk = megakernel_max_batch(
-                self.decoder.cfg, memory_len, unroll_steps=_MEGAKERNEL_UNROLL,
-                sampled=temperature > 0) or None
+            chunk = megakernel_max_batch(self.decoder.cfg, memory_len,
+                                         sampled=temperature > 0) or None
 
         def run(ids, mask, style, voice, gen):
             return self.decode_tokens(ids, mask, style, voice, frames, temperature, gen)
@@ -274,39 +268,58 @@ class Synthesizer:
         tokens = _run_chunked(run, mine, gen, chunk)
         return comm.gather(tokens, 0, axis_group(self.mesh, "data"))[:B].cpu().numpy()
 
+    def _front(self, texts, style_prompts, voice_wavs):
+        """G2P, BERT and the voice encode of a request's rows: ((phoneme ids,
+        text mask, style BERT, voice codec) on the device, the host phoneme
+        ids, the host text mask)."""
+        with annotate("synth.g2p"):
+            phoneme_ids, _, text_mask = self.frontend.encode_batch(
+                list(texts), pad_to=self.cfg.data.max_text_len)
+        with annotate("synth.bert"):
+            style_bert = self.style_encoder.embed(list(style_prompts))
+        voice_codec = self._encode_voice(list(voice_wavs))
+        ids, mask, voice = self._tensors(phoneme_ids, text_mask, voice_codec)
+        return (ids, mask, style_bert, voice), phoneme_ids, text_mask
+
+    def _decode_bucket(self, arrays, frames: int, temperature: float, generator) -> np.ndarray:
+        """Decode rows at one frame budget, then FACodec: (B, frames * hop)
+        waveforms."""
+        tokens = self._decode_rows(arrays, frames, temperature, generator)
+        Q = self.cfg.decoder.num_quantizers
+        codec = tokens.reshape(len(tokens), Q, frames).transpose(0, 2, 1)
+        with annotate("synth.codec_decode"):
+            return self.tokenizer.decode(codec)
+
+    def _synthesize_fixed(self, texts, style_prompts, voice_wavs, frames: Optional[int],
+                          temperature: float, seed: int) -> Tuple[np.ndarray, int]:
+        """A fixed-length request: every row decodes at one 64-frame bucket,
+        of ``frames`` or else of the longest predicted duration.  Returns
+        ((B, T_audio) waveforms, the bucket)."""
+        arrays, phoneme_ids, text_mask = self._front(texts, style_prompts, voice_wavs)
+        if frames is None:
+            with annotate("synth.durations"):
+                frames = self.predict_frames(phoneme_ids, text_mask)
+        frames = self._bucket(frames)
+        return self._decode_bucket(arrays, frames, temperature, self._generator(seed)), frames
+
     @annotate("synth.request")
     def synthesize(self, text: str, style_prompt: str, voice_wav, frames: Optional[int] = None,
                    temperature: float = 0.0, seed: int = 0) -> Tuple[np.ndarray, dict]:
         """Returns (waveform (T,) float32 at 16 kHz, info).  ``voice_wav`` is
         a waveform array, a WAV path or a :meth:`register_voice` name."""
         t0 = time.perf_counter()
-        with annotate("synth.g2p"):
-            phoneme_ids, _, text_mask = self.frontend.encode_batch(
-                [text], pad_to=self.cfg.data.max_text_len)
-        with annotate("synth.bert"):
-            style_bert = self.style_encoder.embed([style_prompt])
-        voice_codec = self._encode_voice([voice_wav])
-        if frames is None:
-            with annotate("synth.durations"):
-                frames = self.predict_frames(phoneme_ids, text_mask)
-        frames = self._bucket(frames)
-        ids, mask, voice = self._tensors(phoneme_ids, text_mask, voice_codec)
-        tokens = self._decode_rows((ids, mask, style_bert, voice), frames, temperature,
-                                   self._generator(seed))
-        Q = self.cfg.decoder.num_quantizers
-        codec = tokens.reshape(1, Q, frames).transpose(0, 2, 1)
-        with annotate("synth.codec_decode"):
-            wav = self.tokenizer.decode(codec)[0]
+        wavs, frames = self._synthesize_fixed([text], [style_prompt], [voice_wav], frames,
+                                              temperature, seed)
         wall = time.perf_counter() - t0
         audio_seconds = frames / self.tokenizer.frames_per_second
         info = {
             "frames": frames,
-            "tokens": int(Q * frames),
+            "tokens": int(self.cfg.decoder.num_quantizers * frames),
             "audio_seconds": audio_seconds,
             "wall_seconds": wall,
             "rtf": wall / audio_seconds,
         }
-        return wav, info
+        return wavs[0], info
 
     @annotate("synth.request")
     def synthesize_batch(self, texts, style_prompts, voice_wavs, frames: Optional[int] = None,
@@ -323,65 +336,48 @@ class Synthesizer:
         if not len(texts) == len(style_prompts) == len(voice_wavs):
             raise ValueError("texts, style_prompts and voice_wavs differ in length")
         t0 = time.perf_counter()
-        with annotate("synth.g2p"):
-            phoneme_ids, _, text_mask = self.frontend.encode_batch(
-                list(texts), pad_to=self.cfg.data.max_text_len)
-        with annotate("synth.bert"):
-            style_bert = self.style_encoder.embed(list(style_prompts))
-        voice_codec = self._encode_voice(list(voice_wavs))
         B = len(texts)
         Q = self.cfg.decoder.num_quantizers
-        ids, mask, voice = self._tensors(phoneme_ids, text_mask, voice_codec)
-        arrays = (ids, mask, style_bert, voice)
-        generator = self._generator(seed)
-
-        if variable_length:
-            with annotate("synth.durations"):
-                per_utt = self.predict_frames_per_utterance(phoneme_ids, text_mask)
-            if frames is not None:
-                per_utt = np.minimum(per_utt, int(frames))
-                buckets = np.full(B, self._bucket(frames))
-            else:
-                buckets = np.array([self._bucket(f) for f in per_utt])
-            wavs: list = [None] * B
-            total_tokens = 0
-            for bucket in sorted(set(buckets.tolist())):
-                idx = np.nonzero(buckets == bucket)[0]
-                sel = torch.as_tensor(idx, device=self.device)
-                tokens = self._decode_rows(tuple(a[sel] for a in arrays), bucket, temperature,
-                                           generator)
-                codec = tokens.reshape(len(idx), Q, bucket).transpose(0, 2, 1)
-                with annotate("synth.codec_decode"):
-                    group_wavs = self.tokenizer.decode(codec)
-                for row, i in enumerate(idx):
-                    wavs[int(i)] = group_wavs[row][: int(per_utt[i]) * self.tokenizer.hop]
-                total_tokens += len(idx) * Q * bucket
+        if not variable_length:
+            wavs, frames = self._synthesize_fixed(texts, style_prompts, voice_wavs, frames,
+                                                  temperature, seed)
             wall = time.perf_counter() - t0
             info = {
-                "frames": [int(f) for f in per_utt],
-                "buckets": buckets.tolist(),
-                "tokens": total_tokens,
-                "audio_seconds": [int(f) / self.tokenizer.frames_per_second for f in per_utt],
+                "frames": frames,
+                "tokens": int(B * Q * frames),
+                "audio_seconds": frames / self.tokenizer.frames_per_second,
                 "wall_seconds": wall,
-                "tokens_per_sec": total_tokens / wall,
+                "tokens_per_sec": B * Q * frames / wall,
             }
             return wavs, info
 
-        if frames is None:
-            with annotate("synth.durations"):
-                frames = self.predict_frames(phoneme_ids, text_mask)
-        frames = self._bucket(frames)
-        tokens = self._decode_rows(arrays, frames, temperature, generator)
-        codec = tokens.reshape(B, Q, frames).transpose(0, 2, 1)
-        with annotate("synth.codec_decode"):
-            wavs = self.tokenizer.decode(codec)
+        arrays, phoneme_ids, text_mask = self._front(texts, style_prompts, voice_wavs)
+        generator = self._generator(seed)
+        with annotate("synth.durations"):
+            per_utt = self.predict_frames_per_utterance(phoneme_ids, text_mask)
+        if frames is not None:
+            per_utt = np.minimum(per_utt, int(frames))
+            buckets = np.full(B, self._bucket(frames))
+        else:
+            buckets = np.array([self._bucket(f) for f in per_utt])
+        wavs: list = [None] * B
+        total_tokens = 0
+        for bucket in sorted(set(buckets.tolist())):
+            idx = np.nonzero(buckets == bucket)[0]
+            sel = torch.as_tensor(idx, device=self.device)
+            group_wavs = self._decode_bucket(tuple(a[sel] for a in arrays), bucket, temperature,
+                                             generator)
+            for row, i in enumerate(idx):
+                wavs[int(i)] = group_wavs[row][: int(per_utt[i]) * self.tokenizer.hop]
+            total_tokens += len(idx) * Q * bucket
         wall = time.perf_counter() - t0
         info = {
-            "frames": frames,
-            "tokens": int(B * Q * frames),
-            "audio_seconds": frames / self.tokenizer.frames_per_second,
+            "frames": [int(f) for f in per_utt],
+            "buckets": buckets.tolist(),
+            "tokens": total_tokens,
+            "audio_seconds": [int(f) / self.tokenizer.frames_per_second for f in per_utt],
             "wall_seconds": wall,
-            "tokens_per_sec": B * Q * frames / wall,
+            "tokens_per_sec": total_tokens / wall,
         }
         return wavs, info
 

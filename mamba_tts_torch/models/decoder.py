@@ -17,6 +17,7 @@ in one device program: on the card a CUDA graph of four in-place steps
 (:func:`decode_step_`: the step index is a device tensor, token, logits and
 states are written into fixed buffers) captured once per call and replayed
 (:func:`run_captured`); on the CPU the same in-place step runs eagerly.
+:func:`run_step_decode` is that loop, for the int8 and jamba decodes too.
 The functional ``step_with_kv`` (returned states) is the step it runs and
 the reference it is held to.  ``forward`` (teacher forcing, training) runs
 its scans and long-query attention through the Hopper kernels on the card;
@@ -258,15 +259,21 @@ class DecodeCarry(NamedTuple):
 
 
 def init_carry(cfg: DecoderConfig, batch: int, total: int, dtype, device,
-               collect_logits: bool) -> DecodeCarry:
-    cc = cfg.with_mamba_dims()
+               collect_logits: bool, states: Optional[List[MambaState]] = None,
+               cache: Optional[NamedTuple] = None) -> DecodeCarry:
+    """The carry of a ``total``-step decode from BOS.  ``states``: the Mamba
+    layers' states when the caller has them (the jamba decoder's prefill),
+    else zeros in ``dtype``; ``cache``: the jamba decoder's K/V caches."""
+    if states is None:
+        cc = cfg.with_mamba_dims()
+        states = [init_mamba_state(cc.mamba, batch, dtype, device) for _ in range(cfg.n_layers)]
     return DecodeCarry(
         step=torch.zeros((1,), dtype=torch.long, device=device),
         token=torch.full((batch, 1), cfg.bos_id, dtype=torch.long, device=device),
         tokens=torch.zeros((batch, total), dtype=torch.long, device=device),
         logits=(torch.zeros((batch, total, cfg.vocab_size_audio), dtype=torch.float32,
                             device=device) if collect_logits else None),
-        states=[init_mamba_state(cc.mamba, batch, dtype, device) for _ in range(cfg.n_layers)])
+        states=states, cache=cache)
 
 
 def decode_step_(step_fn, carry: DecodeCarry, num_special: int, temperature: float = 0.0,
@@ -362,12 +369,40 @@ def run_captured(step_fn, total: int, generator: Optional[torch.Generator] = Non
         c.launches += n * r
 
 
-def run_eager(step_fn, total: int) -> None:
-    """Run ``step_fn`` ``total`` times in a host loop (the decode off the
-    card), traced as ``decode.run``."""
-    with annotate("decode.run", device_time=True, steps=total, path="eager"):
-        for _ in range(total):
-            step_fn()
+def run_step_decode(step, carry: DecodeCarry, num_special: int, temperature: float,
+                    top_k: int, generator: Optional[torch.Generator],
+                    counted: Sequence[Tuple[object, Optional[str]]] = (),
+                    path: str = "graph") -> DecodeResult:
+    """Run a step decode over ``carry`` to its end: ``step(token, states,
+    index)`` is the decoder's step with the request's constants bound (see
+    :func:`decode_step_`).  On the card the steps replay a captured CUDA
+    graph (:func:`run_captured`, its replays traced with ``path``), off it
+    they run eagerly in a host loop (``decode.run`` with ``path="eager"``).
+
+    ``counted``: (kernel wrapper, tracer counter or None) pairs.  Each
+    wrapper's ``launches`` counts the decode's executions of its kernel
+    (the capture's calls taken back, each replay's added); a counter is
+    recorded only when the decode took its kernel."""
+    B, total = carry.tokens.shape
+
+    def step_fn():
+        decode_step_(step, carry, num_special, temperature, top_k, generator)
+
+    ops = [op for op, _ in counted]
+    before = [op.launches for op in ops]
+    if on_card(carry.tokens):
+        run_captured(step_fn, total, generator if temperature > 0.0 else None, counters=ops,
+                     path=path)
+    else:
+        with annotate("decode.run", device_time=True, steps=total, path="eager"):
+            for _ in range(total):
+                step_fn()
+    for (op, name), b in zip(counted, before):
+        if name is not None and op.launches > b:
+            count(name, op.launches - b)
+    logits = (carry.logits if carry.logits is not None
+              else torch.zeros((B, 0), device=carry.tokens.device))
+    return DecodeResult(tokens=carry.tokens, logits=logits)
 
 
 @torch.no_grad()
@@ -387,13 +422,11 @@ def greedy_decode(
 ) -> DecodeResult:
     """Autoregressive decode over Q * frames_per_stream steps from BOS.
     ``temperature == 0`` -> greedy argmax; otherwise sampling with
-    ``generator``.  On the card the step loop replays a captured CUDA graph
-    (:func:`run_captured`), and the one-query attention kernel's executions
-    (the warm-up's and the replays') are counted as
-    ``decode.attention_launches``, and those of the Mamba step's two kernels
+    ``generator``.  The steps run through :func:`run_step_decode`, which
+    counts the one-query attention kernel's executions as
+    ``decode.attention_launches`` and those of the Mamba step's two kernels
     (``ops/mamba_step.py``, updating the carry's states in place) as
-    ``decode.mamba_step_launches``, while tracing is on; on the CPU it runs
-    :func:`decode_step_` eagerly."""
+    ``decode.mamba_step_launches`` while tracing is on."""
     c = decoder.cfg
     B = text_hidden.shape[0]
     Q = num_streams if num_streams is not None else c.num_quantizers
@@ -408,20 +441,6 @@ def greedy_decode(
         return decoder.step_with_kv(token, KV, memory_mask, films, states, index,
                                     frames_per_stream, inplace=True)
 
-    def step_fn():
-        decode_step_(step, carry, c.num_special_tokens, temperature, top_k, generator)
-
-    if on_card(text_hidden):
-        before = decode_attention.launches, mamba_step.launches
-        run_captured(step_fn, total, generator if temperature > 0.0 else None,
-                     counters=(decode_attention, mamba_step))
-        # a decode that does not take a kernel counts nothing for it
-        for name, op, b in (("decode.attention_launches", decode_attention, before[0]),
-                            ("decode.mamba_step_launches", mamba_step, before[1])):
-            if op.launches - b:
-                count(name, op.launches - b)
-    else:
-        run_eager(step_fn, total)
-    logits = (carry.logits if collect_logits
-              else torch.zeros((B, 0), device=text_hidden.device))
-    return DecodeResult(tokens=carry.tokens, logits=logits)
+    return run_step_decode(step, carry, c.num_special_tokens, temperature, top_k, generator,
+                           counted=((decode_attention, "decode.attention_launches"),
+                                    (mamba_step, "decode.mamba_step_launches")))

@@ -33,7 +33,7 @@ the voice grid is.  The vocabulary is the codec's ids.
 - :meth:`HybridDecoder.step_with_cache` — one token for every row: Mamba
   states returned, K/V written into the cache at each row's position.
 - :func:`hybrid_greedy_decode` — prefill, then the captured decode
-  (``models/decoder.py`` ``run_captured``) over a carry that holds the
+  (``models/decoder.py`` ``run_step_decode``) over a carry that holds the
   Mamba states and the K/V caches side by side.
 
 Mask convention: True = VALID.
@@ -49,18 +49,12 @@ import torch.nn.functional as F
 from mamba_tts_torch.config import DecoderConfig
 from mamba_tts_torch.device import on_card
 from mamba_tts_torch.models.attention import SelfAttention
-from mamba_tts_torch.models.decoder import (
-    DecodeCarry,
-    DecodeResult,
-    decode_step_,
-    run_captured,
-    run_eager,
-)
+from mamba_tts_torch.models.decoder import DecodeResult, init_carry, run_step_decode
 from mamba_tts_torch.models.layers import Dense, Embed, RMSNorm, parse_dtype
 from mamba_tts_torch.models.mamba import MambaBlock, MambaState
 from mamba_tts_torch.ops import mamba_step
 from mamba_tts_torch.ops.decode_attention import decode_attention
-from mamba_tts_torch.utils.profiling import annotate, count
+from mamba_tts_torch.utils.profiling import annotate
 
 
 NORM_EPS = 1e-6  # every RMSNorm's (Jamba2-3B's rms_norm_eps)
@@ -324,8 +318,8 @@ def hybrid_greedy_decode(
     """Prefill every row's prefix, then decode Q * frames_per_stream steps
     from BOS, all rows in lockstep (greedy, or sampled at ``temperature``
     with ``generator``).  On the card the steps replay a captured CUDA graph
-    (``run_captured``, traced as ``decode.run`` with ``path="hybrid"``) and
-    the self-attention kernel's executions count as
+    (``run_step_decode``, traced as ``decode.run`` with ``path="hybrid"``)
+    and the self-attention kernel's executions count as
     ``decode.self_attention_launches``, those of the Mamba step's two
     kernels (the carry's states updated in place) as
     ``decode.mamba_step_launches``; on the CPU they run eagerly."""
@@ -337,31 +331,16 @@ def hybrid_greedy_decode(
         states, kvs = decoder.prefill(prefix, lengths)
         if span is not None:  # the longest row's positions, and each row's
             span.attrs.update(positions=prefix.shape[1], lengths=lengths)
-    dev = text_hidden.device
     with annotate("decode.plan"):
         cache = init_cache(kvs, lengths, prefix.shape[1] + total)
         del kvs, prefix
-        carry = DecodeCarry(
-            step=torch.zeros((1,), dtype=torch.long, device=dev),
-            token=torch.full((B, 1), c.bos_id, dtype=torch.long, device=dev),
-            tokens=torch.zeros((B, total), dtype=torch.long, device=dev),
-            logits=(torch.zeros((B, total, c.vocab_size_audio), dtype=torch.float32, device=dev)
-                    if collect_logits else None),
-            states=states, cache=cache)
+        carry = init_carry(c, B, total, decoder.dtype, text_hidden.device, collect_logits,
+                           states=states, cache=cache)
 
     def step(token, sts, index):
         return decoder.step_with_cache(token, sts, carry.cache, index, frames_per_stream)
 
-    def step_fn():
-        decode_step_(step, carry, c.num_special_tokens, temperature, top_k, generator)
-
-    if on_card(text_hidden):
-        before = decode_attention.launches, mamba_step.launches
-        run_captured(step_fn, total, generator if temperature > 0.0 else None,
-                     counters=(decode_attention, mamba_step), path="hybrid")
-        count("decode.self_attention_launches", decode_attention.launches - before[0])
-        count("decode.mamba_step_launches", mamba_step.launches - before[1])
-    else:
-        run_eager(step_fn, total)
-    logits = carry.logits if collect_logits else torch.zeros((B, 0), device=dev)
-    return DecodeResult(tokens=carry.tokens, logits=logits)
+    return run_step_decode(step, carry, c.num_special_tokens, temperature, top_k, generator,
+                           counted=((decode_attention, "decode.self_attention_launches"),
+                                    (mamba_step, "decode.mamba_step_launches")),
+                           path="hybrid")

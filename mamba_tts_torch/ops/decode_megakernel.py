@@ -692,7 +692,6 @@ def plan_resident_bytes(
     memory_len: int,
     weight_dtype: str = "bfloat16",
     kv_dtype: str = "bfloat16",
-    unroll_steps: int = 1,
     sampled: bool = False,
     teacher_force: bool = False,
     *,
@@ -705,11 +704,9 @@ def plan_resident_bytes(
 
     ``memory_len`` is the unpadded cross-attention memory length (ref + text
     tokens).  ``total_steps`` defaults to the longest decode the position
-    table allows, ``num_quantizers * max_len``.  ``unroll_steps`` is
-    accepted for signature parity and changes nothing here.  Pinned byte
-    for byte against the real tensors by tests/test_torch_megakernel.py.
+    table allows, ``num_quantizers * max_len``.  Pinned byte for byte
+    against the real tensors by tests/test_torch_megakernel.py.
     """
-    del unroll_steps
     c = cfg
     m = c.with_mamba_dims().mamba
     L, d, di, N = c.n_layers, c.d_model, m.d_inner, m.d_state
@@ -769,7 +766,6 @@ def megakernel_fit(
     cfg: DecoderConfig,
     batch: int,
     memory_len: int,
-    unroll_steps: int = 1,
     sampled: bool = False,
     budget_bytes: Optional[int] = None,
     *,
@@ -785,7 +781,7 @@ def megakernel_fit(
         return None
     budget = MEGAKERNEL_BUDGET_BYTES if budget_bytes is None else budget_bytes
     for wd, kvd in _DTYPE_LADDER:
-        if plan_resident_bytes(cfg, batch, memory_len, wd, kvd, unroll_steps, sampled,
+        if plan_resident_bytes(cfg, batch, memory_len, wd, kvd, sampled,
                                total_steps=total_steps) <= budget:
             return (wd, kvd)
     return None
@@ -794,7 +790,6 @@ def megakernel_fit(
 def megakernel_max_batch(
     cfg: DecoderConfig,
     memory_len: int,
-    unroll_steps: int = 1,
     sampled: bool = False,
     cap: int = 64,
 ) -> int:
@@ -802,7 +797,7 @@ def megakernel_max_batch(
     none); never above ``MEGAKERNEL_MAX_BATCH``.  Serving chunks bigger
     batches by this (``infer.synthesize._run_chunked``)."""
     b = 0
-    while b < cap and megakernel_fit(cfg, b + 1, memory_len, unroll_steps, sampled) is not None:
+    while b < cap and megakernel_fit(cfg, b + 1, memory_len, sampled) is not None:
         b += 1
     return b
 
@@ -1000,7 +995,6 @@ def _launch(cfg: DecoderConfig, plan: _Plan, total: int, forced, gumbel,
 
 def _megakernel_call(cfg: DecoderConfig, plan: _Plan, frames_per_stream: int,
                      forced_tokens: Optional[torch.Tensor] = None,
-                     unroll_steps: int = 1,
                      gumbel: Optional[torch.Tensor] = None,
                      stage_clocks: Optional[torch.Tensor] = None) -> MegakernelOut:
     """Decode ``Q * frames_per_stream`` steps of ``plan`` in one launch.
@@ -1010,8 +1004,6 @@ def _megakernel_call(cfg: DecoderConfig, plan: _Plan, frames_per_stream: int,
     the gathered row equals the one-hot product exactly).  ``gumbel``
     (total, B, Vpad) f32, already temperature-scaled, is added to each
     step's logits before the argmax that feeds the next step.
-    ``unroll_steps`` must divide the step count, as in the JAX package; the
-    kernel loops over steps itself, so results do not depend on it.
     ``stage_clocks`` (int64, on the card) is a diagnostic: the kernel's block
     0 writes its cycle counter at the start of the middle step and on entering
     and leaving each of its grid barriers (``stage_clock_count(cfg)`` stamps),
@@ -1021,8 +1013,6 @@ def _megakernel_call(cfg: DecoderConfig, plan: _Plan, frames_per_stream: int,
     :func:`decode_megakernel_ref`.
     """
     total = cfg.num_quantizers * frames_per_stream
-    if unroll_steps < 1 or total % unroll_steps:
-        raise ValueError(f"unroll_steps={unroll_steps} must divide total={total}")
     if on_card(plan.K):
         return _launch(cfg, plan, total, forced_tokens, gumbel, stage_clocks)
     if plan.K.device.type == "cpu":
@@ -1052,7 +1042,6 @@ def megakernel_greedy_decode(
     ref_mask: Optional[torch.Tensor] = None,
     collect_logits: bool = False,
     forced_tokens: Optional[torch.Tensor] = None,
-    unroll_steps: int = 1,
     weight_dtype: str = "bfloat16",
     kv_dtype: str = "bfloat16",
     temperature: float = 0.0,
@@ -1075,8 +1064,6 @@ def megakernel_greedy_decode(
     c = decoder.cfg
     B = text_hidden.shape[0]
     total = c.num_quantizers * frames_per_stream
-    while total % unroll_steps:  # largest feasible unroll <= requested
-        unroll_steps -= 1
 
     with annotate("decode.memory"):
         KV, memory_mask, films = decoder.project_memories(
@@ -1103,8 +1090,8 @@ def megakernel_greedy_decode(
             # torch.empty launches no kernel; the launch writes every stamp
             clocks = span.attrs["stage_clocks"] = torch.empty(
                 stage_clock_count(c), dtype=torch.int64, device=dev)
-        logits = _megakernel_call(c, plan, frames_per_stream, forced, unroll_steps=unroll_steps,
-                                  gumbel=noise, stage_clocks=clocks).logits  # (total, B, Vpad)
+        logits = _megakernel_call(c, plan, frames_per_stream, forced, gumbel=noise,
+                                  stage_clocks=clocks).logits  # (total, B, Vpad)
     choice = logits if noise is None else logits + noise
     tokens = torch.argmax(choice, dim=2).T.contiguous()  # (B, total)
     if collect_logits:

@@ -342,7 +342,7 @@ def test_captured_hybrid_decode_equals_its_eager_steps(card):
     kw = dict(text_mask=mask, ref_hidden=dec.embed_codec_tokens(v3),
               ref_mask=v3.reshape(3, -1) != 0, collect_logits=True)
     captured = hy.hybrid_greedy_decode(dec, text, z, F_, **kw)
-    import mamba_tts_torch.models.hybrid as mod
+    import mamba_tts_torch.models.decoder as mod
 
     real = mod.on_card
     try:

@@ -179,7 +179,7 @@ def test_sampled_run_same_gumbel_noise_as_jax_kernel(pair1):
     noise = np.random.default_rng(5).gumbel(size=(p.total, 1, 128)).astype(np.float32) * 0.7
     KV, mm, films = p.jax_memories()
     jplan = jmk._build_plan(p.jcfg, p.jq, KV, mm, films, F)
-    jl = np.asarray(jmk._megakernel_call(p.jcfg, jplan, F, True, None, unroll_steps=1,
+    jl = np.asarray(jmk._megakernel_call(p.jcfg, jplan, F, True, None,
                                          gumbel=jnp.asarray(noise)))
     tKV, tmm, tfilms = p.torch_memories()
     tplan = tmk._build_plan(p.tcfg, p.tq, tKV, tmm, tfilms, F)
@@ -244,19 +244,6 @@ def test_greedy_stream_contract():
     # the first step has no feedback: it must match the step decode's argmax
     ref0 = _step_decode_logits(p, np.full((1, 1), c.bos_id, np.int32))
     assert int(ref0[0, 0, c.num_special_tokens:].argmax()) + c.num_special_tokens == int(toks[0])
-
-
-def test_unrolled_grid_matches_single_step(pair1):
-    """``unroll_steps`` re-blocks the TPU grid only; the port accepts it, cuts
-    it to a divisor of the step count, and the results do not depend on it."""
-    args, kw = pair1.torch_args()
-    outs = {U: tmk.megakernel_greedy_decode(*args, collect_logits=True, unroll_steps=U, **kw)
-            for U in (1, 3)}  # total = 8 -> U=3 reduces to 2
-    assert torch.equal(outs[1].tokens, outs[3].tokens)
-    assert torch.equal(outs[1].logits, outs[3].logits)
-    plan = tmk._build_plan(pair1.tcfg, pair1.tq, *pair1.torch_memories(), F)
-    with pytest.raises(ValueError, match="must divide"):
-        tmk._megakernel_call(pair1.tcfg, plan, F, unroll_steps=3)
 
 
 def test_sampled_decode(pair1):

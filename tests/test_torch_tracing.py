@@ -9,6 +9,7 @@ machine:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_tracing.py -q
 """
 import collections
+import functools
 import time
 
 import numpy as np
@@ -17,9 +18,14 @@ import torch
 
 from mamba_tts_torch import config as config_lib
 from mamba_tts_torch.config import DecoderConfig, MambaConfig
-from mamba_tts_torch.infer.quant_decode import quantize_decoder_params
+from mamba_tts_torch.infer.quant_decode import (
+    greedy_decode_int8,
+    quant_step_with_kv,
+    quantize_decoder_params,
+)
 from mamba_tts_torch.infer.synthesize import load_synthesizer
-from mamba_tts_torch.models.decoder import MambaTTSDecoder, greedy_decode
+from mamba_tts_torch.models import hybrid
+from mamba_tts_torch.models.decoder import MambaTTSDecoder, greedy_decode, next_token
 from mamba_tts_torch.models.layers import seed_init
 from mamba_tts_torch.models.tts import MambaTTS
 from mamba_tts_torch.ops import decode_megakernel as mk
@@ -185,6 +191,101 @@ def test_synthesizer_span_tree_and_outputs_unchanged(quant):
     path = "megakernel" if quant == "megakernel" else "eager"
     assert all(s.attrs["path"] == path and s.device_ms is None for s in runs)
     assert profiling.counters() == {}  # nothing is captured off the card
+
+
+@pytest.mark.parametrize("quant", ["none", "megakernel"])
+def test_one_utterance_equals_a_batch_of_that_row(quant):
+    """``synthesize`` of one utterance and ``synthesize_batch`` of that one
+    row are one fixed-length request: the same waveform bit for bit, each
+    method's own ``info`` keys, one ``synth.request`` root each."""
+    synth = load_synthesizer(SMOKE, device="cpu", quant=quant)
+    v = _voice()
+    profiling.enable()
+    one, one_info = synth.synthesize("hello world, good day", "speak fast", v, seed=3)
+    rows, rows_info = synth.synthesize_batch(["hello world, good day"], ["speak fast"], [v],
+                                             seed=3)
+    profiling.disable()
+    assert len(rows) == 1 and np.array_equal(one, rows[0])
+    shared = {"frames", "tokens", "audio_seconds", "wall_seconds"}
+    assert set(one_info) == shared | {"rtf"} and set(rows_info) == shared | {"tokens_per_sec"}
+    assert all(one_info[k] == rows_info[k] for k in ("frames", "tokens", "audio_seconds"))
+    assert [s.name for s in profiling.spans() if s.parent is None] == ["synth.request"] * 2
+
+
+def _functional_tokens(step, B, total, cfg):
+    """Greedy tokens of ``step(token (B, 1), index (1,)) -> logits (B, 1,
+    V)`` over Python-int steps, the step carrying its own state."""
+    token = torch.full((B, 1), cfg.bos_id, dtype=torch.long)
+    out = []
+    for t in range(total):
+        _, token = next_token(step(token, torch.tensor([t]))[:, 0], cfg.num_special_tokens,
+                              0.0, 0, None)
+        out.append(token)
+    return torch.cat(out, dim=1)
+
+
+def _step_decode_case(kind):
+    """(the decode's result, the functional loop's tokens) on the CPU at a
+    small size: 2 rows, 2 quantizer streams of 5 frames."""
+    B, F = 2, 5
+    g = torch.Generator().manual_seed(7)
+    if kind == "jamba":
+        cfg = DecoderConfig(block="jamba", codebook_size=30, d_model=64, n_layers=4, n_heads=4,
+                            n_kv_heads=1, d_ff=128, d_style=8, max_len=16, num_quantizers=2,
+                            attn_layer_offset=2, attn_layer_period=4, dtype="float32",
+                            mamba=MambaConfig(d_model=64, d_state=16, dt_rank=4))
+        dec = seed_init(hybrid.HybridDecoder(cfg, 24), 0).eval()
+        th, z = torch.randn((B, 9, 24), generator=g), torch.randn((B, 8), generator=g)
+        mask = torch.arange(9)[None] < torch.tensor([[9], [5]])
+        got = hybrid.hybrid_greedy_decode(dec, th, z, F, text_mask=mask)
+        with torch.no_grad():
+            prefix, lengths = dec.prefix(th, mask, z, None, None)
+            states, kvs = dec.prefill(prefix, lengths)
+            cache = hybrid.init_cache(kvs, lengths, prefix.shape[1] + 2 * F)
+            want = _functional_tokens(
+                lambda tok, i: dec.step_with_cache(tok, states, cache, i, F)[0], B, 2 * F, cfg)
+        return got, want
+    cfg = DecoderConfig(codebook_size=16, d_model=32, n_layers=2, n_heads=4, d_ff=64,
+                        d_style=16, max_len=64, num_quantizers=2, dtype="float32",
+                        scan_chunk=8, use_pallas=False, mamba=MambaConfig(d_model=32, d_state=4))
+    dec = seed_init(MambaTTSDecoder(cfg), 0).eval()
+    th, z = torch.randn((B, 7, 32), generator=g), torch.randn((B, 16), generator=g)
+    rh = torch.randn((B, 9, 32), generator=g)
+    mask = torch.arange(7)[None] < torch.tensor([[7], [4]])
+    if kind == "none":
+        got = greedy_decode(dec, th, z, F, text_mask=mask, ref_hidden=rh)
+        fn = dec.step_with_kv
+    else:
+        qp = quantize_decoder_params(dec)
+        got = greedy_decode_int8(dec, qp, th, z, F, text_mask=mask, ref_hidden=rh)
+        fn = functools.partial(quant_step_with_kv, qp, cfg)
+    states = dec.init_states(B)
+
+    def step(tok, i):
+        nonlocal states
+        logits, states = fn(tok, KV, mm, films, states, i, F)
+        return logits
+
+    with torch.no_grad():
+        KV, mm, films = dec.project_memories(th, mask, rh, None, z)
+        want = _functional_tokens(step, B, 2 * F, cfg)
+    return got, want
+
+
+@pytest.mark.parametrize("kind", ["none", "int8", "jamba"])
+def test_step_decodes_equal_their_functional_loops_and_count_no_kernel_not_taken(kind):
+    """Each step decode (``greedy_decode``, ``greedy_decode_int8``,
+    ``hybrid_greedy_decode``) runs through the one step-decode loop: traced
+    on the CPU its tokens equal the functional loop's over Python-int steps,
+    its steps run eagerly, and no launch counter is recorded for a kernel it
+    did not take."""
+    profiling.enable()
+    got, want = _step_decode_case(kind)
+    profiling.disable()
+    assert torch.equal(got.tokens, want) and got.logits.shape == (2, 0)
+    (run,) = [s for s in profiling.spans() if s.name == "decode.run"]
+    assert run.attrs["steps"] == 10 and run.attrs["path"] == "eager"
+    assert profiling.counters() == {}
 
 
 def _batch(cfg, B=2, L=12, S=16, seed=0):
