@@ -60,7 +60,7 @@ from mamba_tts_torch.device import resolve_device
 from mamba_tts_torch.infer.quant_decode import greedy_decode_int8, quantize_decoder_params
 from mamba_tts_torch.models.decoder import greedy_decode
 from mamba_tts_torch.models.hybrid import hybrid_greedy_decode
-from mamba_tts_torch.models.layers import seed_init
+from mamba_tts_torch.models.layers import hold_in_compute_dtype, seed_init
 from mamba_tts_torch.models.style_text_encoder import StyleTextEncoder
 from mamba_tts_torch.models.tts import MambaTTS
 from mamba_tts_torch.ops.decode_megakernel import (
@@ -99,8 +99,24 @@ def _megakernel_dtypes(cfg, batch: int, memory_len: int, sampled: bool = False,
     return megakernel_fit(cfg, batch, memory_len, sampled=sampled, budget_bytes=budget_bytes)
 
 
+def _tensor_parallel(decoder) -> bool:
+    """Whether ``decoder`` was built on a mesh that splits its layers over a
+    tensor-parallel group."""
+    return any(getattr(m, "tp_group", None) is not None for m in decoder.modules())
+
+
 class Synthesizer:
-    """End-to-end TTS inference engine over a :class:`MambaTTS` module."""
+    """End-to-end TTS inference engine over a :class:`MambaTTS` module.
+
+    It holds the decoder as served.  With ``quant="none"`` every ``Dense``
+    weight and bias of the decoder that is wider than its compute dtype is
+    stored in that dtype once, at build, and the float32 storage released
+    (``layers.hold_in_compute_dtype``): the decode step's products read them
+    in place and cast nothing.  The int8, int8_kv and megakernel paths
+    quantize and stack the float32 masters, and a decoder split over a
+    tensor-parallel group adds its float32 bias after the float32 reduce,
+    so those keep their masters.  A model passed in is changed in place, as
+    ``.to(device).eval()`` already changes it."""
 
     def __init__(
         self,
@@ -124,6 +140,8 @@ class Synthesizer:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.decoder = self.model.decoder
+        if quant == "none" and not _tensor_parallel(self.decoder):
+            hold_in_compute_dtype(self.decoder)
         self._qparams = quantize_decoder_params(self.decoder) if quant != "none" else None
         # one weight plan per weight dtype the planner can pick, built once, so
         # that a decode call stacks, casts and folds no weights

@@ -43,7 +43,15 @@ import torch.utils.checkpoint
 from mamba_tts_torch.config import DecoderConfig
 from mamba_tts_torch.device import on_card
 from mamba_tts_torch.models.attention import CrossAttention
-from mamba_tts_torch.models.layers import Dense, Embed, LayerNorm, parse_dtype, row_parallel
+from mamba_tts_torch.models.layers import (
+    Dense,
+    Embed,
+    LayerNorm,
+    dense_casts,
+    dense_products,
+    parse_dtype,
+    row_parallel,
+)
 from mamba_tts_torch.models.mamba import MambaBlock, MambaState, init_mamba_state
 from mamba_tts_torch.ops import mamba_step
 from mamba_tts_torch.ops.decode_attention import decode_attention
@@ -369,6 +377,12 @@ def run_captured(step_fn, total: int, generator: Optional[torch.Generator] = Non
         c.launches += n * r
 
 
+# the step's products (``Dense`` and ``row_parallel``) and those of them that
+# cast a weight or bias, as ``run_step_decode`` counts them
+DENSE_COUNTED = ((dense_products, "decode.dense_products"),
+                 (dense_casts, "decode.dense_casts"))
+
+
 def run_step_decode(step, carry: DecodeCarry, num_special: int, temperature: float,
                     top_k: int, generator: Optional[torch.Generator],
                     counted: Sequence[Tuple[object, Optional[str]]] = (),
@@ -424,9 +438,11 @@ def greedy_decode(
     ``temperature == 0`` -> greedy argmax; otherwise sampling with
     ``generator``.  The steps run through :func:`run_step_decode`, which
     counts the one-query attention kernel's executions as
-    ``decode.attention_launches`` and those of the Mamba step's two kernels
+    ``decode.attention_launches``, those of the Mamba step's two kernels
     (``ops/mamba_step.py``, updating the carry's states in place) as
-    ``decode.mamba_step_launches`` while tracing is on."""
+    ``decode.mamba_step_launches``, and the step's products and those that
+    cast a weight or bias as ``decode.dense_products`` and
+    ``decode.dense_casts`` while tracing is on."""
     c = decoder.cfg
     B = text_hidden.shape[0]
     Q = num_streams if num_streams is not None else c.num_quantizers
@@ -443,4 +459,5 @@ def greedy_decode(
 
     return run_step_decode(step, carry, c.num_special_tokens, temperature, top_k, generator,
                            counted=((decode_attention, "decode.attention_launches"),
-                                    (mamba_step, "decode.mamba_step_launches")))
+                                    (mamba_step, "decode.mamba_step_launches"),
+                                    *DENSE_COUNTED))

@@ -49,7 +49,12 @@ import torch.nn.functional as F
 from mamba_tts_torch.config import DecoderConfig
 from mamba_tts_torch.device import on_card
 from mamba_tts_torch.models.attention import SelfAttention
-from mamba_tts_torch.models.decoder import DecodeResult, init_carry, run_step_decode
+from mamba_tts_torch.models.decoder import (
+    DENSE_COUNTED,
+    DecodeResult,
+    init_carry,
+    run_step_decode,
+)
 from mamba_tts_torch.models.layers import Dense, Embed, RMSNorm, parse_dtype
 from mamba_tts_torch.models.mamba import MambaBlock, MambaState
 from mamba_tts_torch.ops import mamba_step
@@ -141,7 +146,9 @@ class HybridDecoder(nn.Module):
     """The jamba decoder; see the module's docstring.  ``d_text``: the
     width of the text encoder's output.  Every product's matrix (the Dense
     weights, the Mamba conv taps) is held in the compute dtype, as served;
-    embeddings, biases, norms, A_log and D stay f32."""
+    embeddings, norms, A_log and D stay f32.  The Dense biases are built in
+    f32 and served in the compute dtype (``Synthesizer`` holds them so:
+    ``layers.hold_in_compute_dtype``)."""
 
     def __init__(self, cfg: DecoderConfig, d_text: int):
         super().__init__()
@@ -322,7 +329,9 @@ def hybrid_greedy_decode(
     and the self-attention kernel's executions count as
     ``decode.self_attention_launches``, those of the Mamba step's two
     kernels (the carry's states updated in place) as
-    ``decode.mamba_step_launches``; on the CPU they run eagerly."""
+    ``decode.mamba_step_launches``, the step's products and those that cast
+    a weight or bias as ``decode.dense_products`` and
+    ``decode.dense_casts``; on the CPU they run eagerly."""
     c = decoder.cfg
     B = text_hidden.shape[0]
     total = (num_streams or c.num_quantizers) * frames_per_stream
@@ -342,5 +351,6 @@ def hybrid_greedy_decode(
 
     return run_step_decode(step, carry, c.num_special_tokens, temperature, top_k, generator,
                            counted=((decode_attention, "decode.self_attention_launches"),
-                                    (mamba_step, "decode.mamba_step_launches")),
+                                    (mamba_step, "decode.mamba_step_launches"),
+                                    *DENSE_COUNTED),
                            path="hybrid")

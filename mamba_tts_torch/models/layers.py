@@ -4,7 +4,10 @@ Parameters are float32 (Flax's ``param_dtype``); each layer casts its inputs
 and weights to its compute ``dtype`` and returns that dtype, as
 ``nn.Dense(dtype=...)``, ``nn.Conv(dtype=...)`` and ``nn.Embed(dtype=...)``
 do.  ``LayerNorm`` computes its statistics in f32 with Flax's default
-epsilon 1e-6 (torch's default is 1e-5) and casts afterwards.
+epsilon 1e-6 (torch's default is 1e-5) and casts afterwards.  A module that
+is served may hold its ``Dense`` weights and biases in their compute dtype
+instead (:func:`hold_in_compute_dtype`), which leaves every product as it
+was and casts nothing.
 
 ``init_weights(generator)`` gives every layer a seeded random init in the
 spirit of Flax's defaults (LeCun-normal kernels, zero biases, unit norm
@@ -27,9 +30,30 @@ def normal_init(t: torch.Tensor, std: float, g: torch.Generator) -> None:
         t.copy_(torch.randn(t.shape, generator=g) * std)
 
 
+class Executions:
+    """A count of executions, kept as a kernel wrapper keeps its
+    ``launches``, so that ``models/decoder.py`` ``run_step_decode`` counts
+    a captured graph's replays of them too."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+dense_products = Executions()  # every Dense product, row_parallel's included
+dense_casts = Executions()  # those that cast their weight or bias to the compute dtype
+
+
+def _count_product(weight: torch.Tensor, bias: Optional[torch.Tensor], dtype) -> None:
+    dense_products.launches += 1
+    if weight.dtype != dtype or (bias is not None and bias.dtype != dtype):
+        dense_casts.launches += 1
+
+
 class Dense(nn.Linear):
     """``nn.Dense``: y = x @ W + b in ``dtype``.  ``weight`` is (out, in), the
-    transpose of the Flax ``kernel``."""
+    transpose of the Flax ``kernel``.  A weight or bias wider than ``dtype``
+    is cast on every call (``dense_casts`` counts those products);
+    :func:`hold_in_compute_dtype` stores them in ``dtype`` once."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True, dtype=torch.float32):
         super().__init__(d_in, d_out, bias=bias)
@@ -37,6 +61,7 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        _count_product(self.weight, self.bias, dt)
         b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
@@ -54,11 +79,27 @@ def row_parallel(dense: Dense, x: torch.Tensor, group) -> torch.Tensor:
     ``Dense`` without a group."""
     if group is None:
         return dense(x)
+    _count_product(dense.weight, None, dense.dtype)
     y = reduce_from_group(F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype)).float(),
                           group)
     if dense.bias is not None:
         y = y + dense.bias
     return y.to(dense.dtype)
+
+
+@torch.no_grad()
+def hold_in_compute_dtype(module: nn.Module) -> None:
+    """Store each ``Dense`` weight and bias of ``module`` that is wider than
+    its layer's compute dtype in that dtype, once, and release the wider
+    storage.  These are the values ``Dense.forward`` rounds them to before
+    every product, so every product is unchanged bit for bit and casts
+    nothing.  For a module that is served, not trained: the optimizer
+    updates the float32 parameters."""
+    for m in module.modules():
+        if isinstance(m, Dense):
+            for p in (m.weight, m.bias):
+                if p is not None and torch.finfo(p.dtype).bits > torch.finfo(m.dtype).bits:
+                    p.data = p.data.to(m.dtype)
 
 
 class Conv(nn.Conv1d):

@@ -2,6 +2,9 @@
 step, and the plain and int8 greedy decodes, on weights carried across by
 ``mamba_tts_torch.bridge``.  float32 configs throughout; tolerances are
 stated per test."""
+import copy
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,9 +17,12 @@ from mamba_tts_tpu.infer import quant_decode as jqd
 from mamba_tts_tpu.models.decoder import MambaTTSDecoder as JDecoder
 from mamba_tts_tpu.models.decoder import greedy_decode as j_greedy_decode
 from mamba_tts_tpu.models.mamba import MambaBlock as JMambaBlock
+from mamba_tts_torch import config as config_lib
 from mamba_tts_torch.bridge import load_params
 from mamba_tts_torch.config import DecoderConfig, MambaConfig
 from mamba_tts_torch.infer import quant_decode as tqd
+from mamba_tts_torch.infer.synthesize import Synthesizer
+from mamba_tts_torch.models import hybrid
 from mamba_tts_torch.models.decoder import (
     DecodeResult,
     MambaTTSDecoder,
@@ -26,7 +32,9 @@ from mamba_tts_torch.models.decoder import (
     init_carry,
     next_token,
 )
+from mamba_tts_torch.models.layers import Dense, seed_init
 from mamba_tts_torch.models.mamba import MambaBlock
+from mamba_tts_torch.models.tts import MambaTTS
 
 KW = dict(codebook_size=24, d_model=32, n_layers=2, n_heads=4, d_ff=64, d_style=16,
           max_len=128, num_quantizers=5, dtype="float32", scan_chunk=8, use_pallas=False)
@@ -292,3 +300,129 @@ def test_graph_split_covers_every_step(steps_per_graph):
         warm, replays = graph_split(total, steps_per_graph)
         assert 1 <= warm <= steps_per_graph
         assert warm + replays * steps_per_graph == total
+
+
+# ------------------------------------------------- the decoder as served
+
+SMOKE = config_lib.from_json(open("tests/smoke_config.json").read())
+
+
+def _served_cfg(kind):
+    """The smoke configuration with a bf16 decoder: the default decoder
+    (the layers of ``tts512x8`` at a small width) or a small jamba decoder
+    (4 layers, attention at layer 2)."""
+    if kind == "default":
+        dec = dataclasses.replace(SMOKE.decoder, dtype="bfloat16")
+    else:
+        dec = DecoderConfig(
+            block="jamba", codebook_size=SMOKE.decoder.codebook_size, d_model=64, n_layers=4,
+            n_heads=4, n_kv_heads=1, d_ff=128, d_style=SMOKE.decoder.d_style, max_len=64,
+            num_quantizers=SMOKE.decoder.num_quantizers, attn_layer_offset=2,
+            attn_layer_period=4, dtype="bfloat16",
+            mamba=MambaConfig(d_model=64, d_state=16, dt_rank=4))
+    return dataclasses.replace(SMOKE, decoder=dec)
+
+
+def _served_model(kind, mesh=None):
+    """(a seeded model, an untouched copy of it); every bias nonzero, so
+    that each one's storage is tested."""
+    model = seed_init(MambaTTS(_served_cfg(kind), mesh=mesh), 0).eval()
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for n, p in model.decoder.named_parameters():
+            if n.endswith(".bias"):
+                p.add_((0.1 * torch.randn(p.shape, generator=g)).to(p.dtype))
+    return model, copy.deepcopy(model)
+
+
+def _served_decode(kind, dec):
+    """Tokens and logits of a 2-row decode of 6 frames a stream."""
+    g = torch.Generator().manual_seed(2)
+    B, F_ = 2, 6
+    th = torch.randn((B, 7, SMOKE.text_encoder.d_model), generator=g)
+    z = torch.randn((B, dec.cfg.d_style), generator=g)
+    mask = torch.arange(7)[None] < torch.tensor([[7], [4]])
+    rh = torch.randn((B, 9, dec.cfg.d_model), generator=g)
+    if kind == "jamba":
+        return hybrid.hybrid_greedy_decode(dec, th, z, F_, text_mask=mask, ref_hidden=rh,
+                                           collect_logits=True)
+    return greedy_decode(dec, th.bfloat16(), z, F_, text_mask=mask, ref_hidden=rh.bfloat16(),
+                         collect_logits=True)
+
+
+def _dense_tensors(dec):
+    return {f"{n}.{k}": t for n, m in dec.named_modules() if isinstance(m, Dense)
+            for k, t in (("weight", m.weight), ("bias", m.bias)) if t is not None}
+
+
+@pytest.mark.parametrize("kind", ["default", "jamba"])
+def test_a_served_decoder_holds_its_products_weights_in_the_compute_dtype(kind):
+    """``Synthesizer(quant="none")`` stores every bf16 product's weight and
+    bias in bf16, the values its float32 masters round to; the f32 head,
+    the norms, A_log, D, the conv taps and bias and the embeddings are
+    left as they were."""
+    model, masters = _served_model(kind)
+    dec = Synthesizer(_served_cfg(kind), model, device="cpu").decoder
+    assert dec is model.decoder
+    held, want = _dense_tensors(dec), _dense_tensors(masters.decoder)
+    bf16 = {n for n in held if not n.startswith("head.")}
+    assert bf16 and all(held[n].dtype == torch.bfloat16 for n in bf16)
+    assert all(torch.equal(held[n], want[n].to(torch.bfloat16)) for n in bf16)
+    before = dict(masters.decoder.named_parameters())
+    rest = {n: p for n, p in dec.named_parameters() if n not in held}
+    assert any(n.endswith("A_log") for n in rest) and any("conv_w" in n for n in rest)
+    for n, p in [*rest.items(), *((n, held[n]) for n in held if n.startswith("head."))]:
+        assert p.dtype == before[n].dtype and torch.equal(p, before[n]), n
+    # the default decoder's conv taps stay f32 (``conv_step`` reads them so)
+    assert kind == "jamba" or all(p.dtype == torch.float32 for n, p in rest.items())
+
+
+@pytest.mark.parametrize("kind", ["default", "jamba"])
+def test_a_served_decoder_decodes_bit_equal_to_its_float32_masters(kind):
+    """The held decoder's greedy tokens and every step's logits equal, bit
+    for bit, those of the same weights left as built."""
+    model, masters = _served_model(kind)
+    Synthesizer(_served_cfg(kind), model, device="cpu")
+    got, want = _served_decode(kind, model.decoder), _served_decode(kind, masters.decoder)
+    assert torch.equal(got.tokens, want.tokens) and torch.equal(got.logits, want.logits)
+    assert got.logits.shape[1] == SMOKE.decoder.num_quantizers * 6
+
+
+class _GroupMesh:
+    """Enough of a mesh to build a model on: one data rank, ``tp`` model
+    ranks, this rank 0, groups as tokens."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, tp):
+        self.shape = (1, tp)
+
+    def size(self, i):
+        return self.shape[i]
+
+    def get_group(self, axis):
+        return f"group:{axis}"
+
+    def get_local_rank(self, axis):
+        return 0
+
+
+@pytest.mark.parametrize("case", ["int8", "megakernel", "tensor_parallel"])
+def test_quantized_and_tensor_parallel_decoders_keep_their_float32_masters(case):
+    """The int8 and megakernel paths quantize the float32 masters, and a
+    tensor-parallel decoder adds its f32 bias after the reduce: the
+    Synthesizer leaves their storage as built, and quantizing it gives the
+    tensors an untouched decoder gives."""
+    mesh = _GroupMesh(2) if case == "tensor_parallel" else None
+    model, masters = _served_model("default", mesh)
+    synth = Synthesizer(_served_cfg("default"), model, device="cpu",
+                        quant="none" if case == "tensor_parallel" else case)
+    if mesh is not None:
+        assert synth.decoder.layers[0].tp_group == "group:model"
+    before = dict(masters.decoder.named_parameters())
+    for n, p in synth.decoder.named_parameters():
+        assert p.dtype == torch.float32 and torch.equal(p, before[n]), n
+    got = synth._qparams or tqd.quantize_decoder_params(synth.decoder)
+    want = tqd.quantize_decoder_params(masters.decoder)
+    flat_got, flat_want = (jax.tree_util.tree_leaves(t) for t in (got, want))
+    assert len(flat_got) == len(flat_want)
+    assert all(torch.equal(a, b) for a, b in zip(flat_got, flat_want))

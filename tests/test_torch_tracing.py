@@ -26,13 +26,14 @@ from mamba_tts_torch.infer.quant_decode import (
 from mamba_tts_torch.infer.synthesize import load_synthesizer
 from mamba_tts_torch.models import hybrid
 from mamba_tts_torch.models.decoder import MambaTTSDecoder, greedy_decode, next_token
-from mamba_tts_torch.models.layers import seed_init
+from mamba_tts_torch.models.layers import hold_in_compute_dtype, seed_init
 from mamba_tts_torch.models.tts import MambaTTS
 from mamba_tts_torch.ops import decode_megakernel as mk
 from mamba_tts_torch.train import state as state_lib
 from mamba_tts_torch.train.train import batch_to_device, make_train_step
 from mamba_tts_torch.utils import profiling
 from mamba_tts_torch.utils.profiling import annotate, count
+from portbench import run as bench
 
 SMOKE = config_lib.from_json(open("tests/smoke_config.json").read())
 
@@ -190,7 +191,10 @@ def test_synthesizer_span_tree_and_outputs_unchanged(quant):
     assert [s.attrs["steps"] for s in runs] == [Q * 64, Q * 64]
     path = "megakernel" if quant == "megakernel" else "eager"
     assert all(s.attrs["path"] == path and s.device_ms is None for s in runs)
-    assert profiling.counters() == {}  # nothing is captured off the card
+    # nothing is captured off the card; the eager step decode counts its
+    # products (8 a layer and the head), none of which casts in float32
+    products = {"megakernel": 0, "none": step_products(SMOKE.decoder) * 2 * Q * 64}[quant]
+    assert profiling.counters() == ({"decode.dense_products": products} if products else {})
 
 
 @pytest.mark.parametrize("quant", ["none", "megakernel"])
@@ -210,6 +214,13 @@ def test_one_utterance_equals_a_batch_of_that_row(quant):
     assert set(one_info) == shared | {"rtf"} and set(rows_info) == shared | {"tokens_per_sec"}
     assert all(one_info[k] == rows_info[k] for k in ("frames", "tokens", "audio_seconds"))
     assert [s.name for s in profiling.spans() if s.parent is None] == ["synth.request"] * 2
+
+
+def step_products(cfg) -> int:
+    """``Dense`` products a decode step of the default decoder runs: in_proj,
+    x_proj, dt_proj, out_proj, q_proj, o_proj, ff1 and ff2 a layer, then the
+    f32 head."""
+    return 8 * cfg.n_layers + 1
 
 
 def _functional_tokens(step, B, total, cfg):
@@ -278,14 +289,18 @@ def test_step_decodes_equal_their_functional_loops_and_count_no_kernel_not_taken
     ``hybrid_greedy_decode``) runs through the one step-decode loop: traced
     on the CPU its tokens equal the functional loop's over Python-int steps,
     its steps run eagerly, and no launch counter is recorded for a kernel it
-    did not take."""
+    did not take.  The products the step ran through ``Dense`` are counted
+    (the int8 step runs none; the jamba step 7 a layer, its head tied to the
+    embedding), and none of them casts in float32."""
     profiling.enable()
     got, want = _step_decode_case(kind)
     profiling.disable()
     assert torch.equal(got.tokens, want) and got.logits.shape == (2, 0)
     (run,) = [s for s in profiling.spans() if s.name == "decode.run"]
     assert run.attrs["steps"] == 10 and run.attrs["path"] == "eager"
-    assert profiling.counters() == {}
+    per_step = {"none": 8 * 2 + 1, "int8": 0, "jamba": 7 * 4}[kind]
+    assert profiling.counters() == (
+        {"decode.dense_products": 10 * per_step} if per_step else {})
 
 
 def _batch(cfg, B=2, L=12, S=16, seed=0):
@@ -333,6 +348,8 @@ def test_train_step_span_tree_and_results_unchanged():
 # ----------------------------------------------------------------- on the card
 
 def _card_decoder(card):
+    """A small bf16 default decoder (2 layers) and its inputs on ``card``
+    (the CPU too)."""
     cfg = DecoderConfig(codebook_size=16, d_model=64, n_layers=2, n_heads=4, d_ff=128,
                         d_style=32, max_len=256, num_quantizers=2, dtype="bfloat16",
                         scan_chunk=8, use_pallas=False, mamba=MambaConfig(d_model=64, d_state=4))
@@ -359,12 +376,71 @@ def test_graph_captures_count_one_a_captured_call_on_card(card):
     profiling.enable()
     for n in (1, 2):
         greedy_decode(dec, th, z, 9, **kw)
-        # and the Mamba step's two kernels, on each of 2 layers of 18 steps
+        # and the Mamba step's two kernels, on each of 2 layers of 18 steps;
+        # the products, which cast their f32 weights (the decoder is not
+        # held as served)
+        products = {k: v * n for k, v in _dense_counts(dec, held=False).items()}
         assert profiling.counters() == {"decode.graph_captures": n,
-                                        "decode.mamba_step_launches": 72 * n}
+                                        "decode.mamba_step_launches": 72 * n, **products}
     runs = [s for s in profiling.spans() if s.name == "decode.run"]
     assert [s.attrs["steps"] for s in runs] == [16, 16]  # 2 eager steps, 4 replays of 4
     assert all(s.attrs["path"] == "graph" and s.device_ms > 0 for s in runs)
+
+
+def _dense_counts(dec, held):
+    """The product counters a 9-frame decode (18 steps) records: every step
+    runs ``step_products`` products, and where the decoder is not held as
+    served, each of its 8 bf16 products a layer casts its f32 weight."""
+    want = {"decode.dense_products": 18 * step_products(dec.cfg)}
+    if not held:
+        want["decode.dense_casts"] = 18 * 8 * dec.cfg.n_layers
+    return want
+
+
+@pytest.mark.parametrize("held", [False, True])
+def test_dense_counters_count_the_steps_products_and_casts(held):
+    """Off the card (eager steps): ``decode.dense_products`` counts the
+    step's products; ``decode.dense_casts`` is absent once the decoder
+    holds its weights in bf16, and counts each bf16 product otherwise."""
+    dec, th, z, kw = _card_decoder(torch.device("cpu"))
+    if held:
+        hold_in_compute_dtype(dec)
+    profiling.enable()
+    greedy_decode(dec, th, z, 9, **kw)
+    assert profiling.counters() == _dense_counts(dec, held)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("held", [False, True])
+def test_dense_counters_count_warm_up_and_replays_on_card(card, held):
+    """Captured: the same counts over the eager warm-up and the replays
+    (2 steps, then 4 graphs of 4), the capture's own calls taken back."""
+    dec, th, z, kw = _card_decoder(card)
+    if held:
+        hold_in_compute_dtype(dec)
+    profiling.enable()
+    greedy_decode(dec, th, z, 9, **kw)
+    got = profiling.counters()
+    assert got.pop("decode.graph_captures") == 1
+    assert got.pop("decode.mamba_step_launches") == 72
+    assert got == _dense_counts(dec, held)
+
+
+def test_uncast_weight_share_reads_the_product_counters():
+    """``uncast_weight_share.serve``: 100 × (1 − casts / products) over the
+    traced window; 100.0 where no cast was counted, None where no product
+    was, or no window was traced."""
+    reader = bench.load_metric("uncast_weight_share.serve")
+    traced = {"profile": {"window": (0.0, time.time() + 60.0), "kernels": []}}
+    assert reader.read(traced) is None and reader.read({"records": []}) is None
+    profiling.enable()
+    count("decode.dense_products", 170)
+    assert reader.read(traced) == 100.0
+    count("decode.dense_casts", 160)
+    assert reader.read(traced) == pytest.approx(100.0 * 10 / 170)
+    profiling.reset()
+    count("decode.dense_casts", 16)
+    assert reader.read(traced) is None
 
 
 @pytest.mark.cuda
