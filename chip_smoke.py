@@ -26,13 +26,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              differs); reruns bit-identical; ms per call (CUDA events) beside
              the plain version, ``scaled_dot_product_attention`` and the bound
              (K and V read once, 2 * B * H * Tm * 128 bytes, at 3.35 TB/s).
-2c. grouped decode attention — the same source's grouped kernel (the jamba
-             decoder's self-attention step: head_dim 128, 20 query heads on
-             one K/V head) against ``decode_attention_ref`` at B = 16 over a
-             4,100-key cache with 1,538, 2,818 and 4,100 valid keys, and at
-             B = 1: the tolerance of 2b; reruns bit-identical; ms per call
-             beside the plain version and the bound (each valid K/V byte
-             once, q and the output, at 3.35 TB/s).
+2c. grouped decode attention — the same source's grouped kernel (the
+             self-attention step of the jamba decoder: head_dim 128, 20 query
+             heads on one K/V head; and of the granite decoder: 4 query heads
+             on each of 8 K/V heads) against ``decode_attention_ref`` at
+             B = 16 over a 4,100-key cache with 1,538, 2,818 and 4,100 valid
+             keys (granite: 2,818 and 4,100), and at B = 1: the tolerance of
+             2b; reruns bit-identical; ms per call beside the plain version
+             and the bound (each valid K/V byte once a K/V head, q and the
+             output, at 3.35 TB/s).
 2d. mamba step — ``conv_step`` and ``ssm_step`` (the Mamba decode step
              between its projections, both captured decodes) against their
              plain versions ``conv_step_ref`` and ``ssm_step_ref`` on the
@@ -50,6 +52,23 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
              chain with the decode's two carry copies, and the byte bound
              (every operand read once, the window, the state and the
              outputs written once, at 3.35 TB/s).
+2e. mamba-2 step — the granite decoder's Mamba-2 step between its
+             projections: ``conv_step`` at its xBC (8,448 channels, bf16
+             taps and f32 bias, as served) and ``mamba2_step`` (128 heads of 64, d_state
+             128, one group) against ``conv_step_ref`` and
+             ``mamba2_step_ref`` on the card at B = 16 and B = 1 in
+             bfloat16, the operands laid out as ``Mamba2Mixer.step`` lays
+             them (z, xBC and dt slices of one in_proj output; x, B and C
+             slices of the conv's): the new window equal and x_conv within
+             2^-7 of its largest; the state bit-equal (the same IEEE
+             operations in the same order), y within 1e-5 of its largest
+             (only the order of the sum over the state differs); one
+             ``mamba2_step`` launch a call, counted from 0; the in-place form
+             equal to the functional one; reruns bit-identical; µs per call
+             (CUDA events, the window and the state rotated through more
+             than twice the L2) beside the plain versions and the byte bound
+             (the state read and written once, every operand read and the
+             output written once, at 3.35 TB/s).
 3. slice   — serve through ``load_synthesizer(TTSConfig(), quant=...)`` at full
              default width with seeded random weights: (a) int8_kv, 256 frames
              (3.2 s, 1,280 tokens; 1,024 frames before the megakernel requests
@@ -465,21 +484,26 @@ def phase_decode_attention(torch, iters=200):
     return rows
 
 
-GROUPED_CASES = [  # (name, B, valid keys) over a 4,100-key cache of 1 K/V head of 128
-    ("jamba B=16 valid=1538", 16, 1538), ("jamba B=16 valid=2818", 16, 2818),
-    ("jamba B=16 valid=4100", 16, 4100), ("jamba B=1 valid=2818", 1, 2818)]
+GROUPED_CASES = [  # (name, B, valid keys, query heads a K/V head, K/V heads of 128, scale)
+    ("jamba B=16 valid=1538", 16, 1538, 20, 1, 128 ** -0.5),
+    ("jamba B=16 valid=2818", 16, 2818, 20, 1, 128 ** -0.5),
+    ("jamba B=16 valid=4100", 16, 4100, 20, 1, 128 ** -0.5),
+    ("jamba B=1 valid=2818", 1, 2818, 20, 1, 128 ** -0.5),
+    ("granite B=16 valid=2818", 16, 2818, 4, 8, 1 / 128),  # attention_multiplier 1/128
+    ("granite B=16 valid=4100", 16, 4100, 4, 8, 1 / 128),
+    ("granite B=1 valid=2818", 1, 2818, 4, 8, 1 / 128)]
 
 
-def phase_grouped_attention(torch, iters=200, Tm=4100, G=20, hd=128):
+def phase_grouped_attention(torch, iters=200, Tm=4100, hd=128):
     """Phase 2c: see the module docstring.  Returns one row a case."""
     from mamba_tts_torch.ops import decode_attention as da
 
-    scale, rows = hd ** -0.5, []
-    for name, B, valid in GROUPED_CASES:
-        g = torch.Generator(device="cuda").manual_seed(B * 100_000 + valid)
-        cache = torch.randn((2, B, Tm, 1, hd), generator=g, device="cuda").bfloat16()
+    rows = []
+    for name, B, valid, G, Hkv, scale in GROUPED_CASES:
+        g = torch.Generator(device="cuda").manual_seed(B * 100_000 + valid + Hkv)
+        cache = torch.randn((2, B, Tm, Hkv, hd), generator=g, device="cuda").bfloat16()
         K, V = cache[0].transpose(1, 2), cache[1].transpose(1, 2)  # as SelfAttention.step
-        q = torch.randn((B, 1, G * hd), generator=g, device="cuda").bfloat16()
+        q = torch.randn((B, 1, G * Hkv * hd), generator=g, device="cuda").bfloat16()
         n = torch.clamp(valid - 7 * torch.arange(B, device="cuda"), min=1)
         mask = torch.arange(Tm, device="cuda")[None] < n[:, None]
         got = da.decode_attention(q, K, V, mask, scale)
@@ -496,10 +520,11 @@ def phase_grouped_attention(torch, iters=200, Tm=4100, G=20, hd=128):
         ms = device_ms(torch, lambda i: da.decode_attention(q, K, V, mask, scale), iters)
         plain_ms = device_ms(torch, lambda i: da.decode_attention_ref(q, K, V, mask, scale),
                              iters)
-        nbytes = 2 * 2 * int(n.sum()) * hd + 2 * 2 * B * G * hd
+        nbytes = 2 * 2 * int(n.sum()) * Hkv * hd + 2 * 2 * B * G * Hkv * hd
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        row = {"phase": "grouped_attention", "case": name, "B": B, "G": G, "head_dim": hd,
-               "Tm": Tm, "plan": da.grouped_launch_plan(B, 1, G, hd, Tm)._asdict(),
+        row = {"phase": "grouped_attention", "case": name, "B": B, "G": G, "kv_heads": Hkv,
+               "head_dim": hd, "Tm": Tm,
+               "plan": da.grouped_launch_plan(B, Hkv, G, hd, Tm)._asdict(),
                "max_abs_err": float(err.max()), "max_rel_err": float(err.max()) / top,
                "equal_outputs": float((got == want).float().mean()), "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
@@ -617,6 +642,96 @@ def phase_mamba_step(torch, iters=100, plain_iters=8, N=16, K=4, eps=1e-6):
                "state_copies": R}
         row["conv_step_bound_share"] = row["conv_step_bound_ms"] / t["conv_step_ms"]
         row["ssm_step_bound_share"] = row["ssm_step_bound_ms"] / t["ssm_step_ms"]
+        emit(row)
+        rows.append(row)
+        del states
+    return rows
+
+
+MAMBA2_STEP_CASES = [("granite B=16", 16), ("granite B=1", 1)]  # (name, B)
+
+
+def _mamba2_step_bytes(B, H, P, N):
+    """``mamba2_step``'s bytes: the f32 state read and written; x, z, B, C
+    and dt (bf16) and dt_bias, A_log, D (f32) read; y (f32) written."""
+    return 2 * 4 * B * H * P * N + 2 * B * (2 * H * P + 2 * N + H) + 4 * 3 * H + 4 * B * H * P
+
+
+def phase_mamba2_step(torch, iters=100, plain_iters=8, H=128, P=64, N=128, K=4):
+    """Phase 2e: see the module docstring.  Returns one row a case."""
+    from mamba_tts_torch.ops import mamba_step as ms
+
+    def rel(got, want):
+        got, want = got.float(), want.float()
+        return float((got - want).abs().max() / want.abs().max())
+
+    di, conv_dim = H * P, H * P + 2 * N
+    rows = []
+    for name, B in MAMBA2_STEP_CASES:
+        g = torch.Generator(device="cuda").manual_seed(B * 100_000 + N)
+
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=g, device="cuda") * scale
+
+        proj = randn(B, di + conv_dim + H).bfloat16()  # in_proj's output: z, xBC, dt
+        z, xBC, dt = torch.split(proj, [di, conv_dim, H], dim=-1)
+        window = randn(B, K - 1, conv_dim).bfloat16()
+        w, b = randn(K, conv_dim, scale=0.5).bfloat16(), randn(conv_dim, scale=0.1)  # as served
+        dt_bias = randn(H) - 3.0  # softplus of about [1e-3, 0.3]
+        A_log = torch.log(1.0 + 15.0 * torch.rand(H, generator=g, device="cuda"))
+        D = randn(H)
+        h = randn(B, H, P, N)
+        with torch.no_grad():
+            x_conv, new_window = ms.conv_step(xBC, window, w, b)
+            want_x, want_window = ms.conv_step_ref(xBC, window, w, b)
+            xs, Bm, Cm = torch.split(want_x.contiguous(), [di, N, N], dim=-1)
+            ms.launches = 0
+            y, h_new = ms.mamba2_step(xs, Bm, Cm, z, dt, dt_bias, A_log, D, h)
+            launches = ms.launches
+            y2, h_new2 = ms.mamba2_step(xs, Bm, Cm, z, dt, dt_bias, A_log, D, h)
+            want_y, want_h = ms.mamba2_step_ref(xs, Bm, Cm, z, dt, dt_bias, A_log, D, h)
+            win_in, h_in = window.clone(), h.clone()
+            x_conv3, win_in = ms.conv_step(xBC, win_in, w, b, inplace=True)
+            y3, h_in = ms.mamba2_step(xs, Bm, Cm, z, dt, dt_bias, A_log, D, h_in, inplace=True)
+        torch.cuda.synchronize()
+        errs = {"x_conv": rel(x_conv, want_x), "y": rel(y, want_y)}
+        lims = {"x_conv": 2.0 ** -7, "y": 1e-5}
+        check(launches == 1, f"mamba2_step {name}: {launches} launches for one call")
+        check(torch.equal(new_window, want_window), f"conv_step {name}: the window differs")
+        check(torch.equal(h_new, want_h), f"mamba2_step {name}: the state differs from the plain "
+              f"version's (largest difference {float((h_new - want_h).abs().max())})")
+        for k, e in errs.items():
+            check(e <= lims[k], f"mamba-2 step {name}: {k} error {e} over {lims[k]} of its largest")
+        check(torch.equal(y, y2) and torch.equal(h_new, h_new2),
+              f"mamba2_step {name}: reruns differ")
+        check(torch.equal(x_conv3, x_conv) and torch.equal(win_in, new_window)
+              and torch.equal(y3, y) and torch.equal(h_in, h_new),
+              f"mamba-2 step {name}: the in-place form differs from the functional one")
+        conv_bytes = _mamba_step_bytes(B, conv_dim, N, K, w.element_size(), False)[0]
+        step_bytes = _mamba2_step_bytes(B, H, P, N)
+        R = max(1, -(-2 * L2_BYTES // (window.nbytes + h.nbytes)))
+        states = [(window.clone(), h.clone()) for _ in range(R)]
+        with torch.no_grad():
+            t = {
+                "conv_step_ms": device_ms(torch, lambda i: ms.conv_step(
+                    xBC, states[i % R][0], w, b, inplace=True), iters, 200.0),
+                "mamba2_step_ms": device_ms(torch, lambda i: ms.mamba2_step(
+                    xs, Bm, Cm, z, dt, dt_bias, A_log, D, states[i % R][1], inplace=True),
+                    iters, 200.0),
+                "conv_step_plain_ms": device_ms(torch, lambda i: ms.conv_step_ref(
+                    xBC, states[i % R][0], w, b), plain_iters, 200.0),
+                "mamba2_step_plain_ms": device_ms(torch, lambda i: ms.mamba2_step_ref(
+                    xs, Bm, Cm, z, dt, dt_bias, A_log, D, states[i % R][1]), plain_iters, 200.0),
+            }
+        row = {"phase": "mamba2_step", "case": name, "B": B, "heads": H, "head_dim": P,
+               "d_state": N, "conv_channels": conv_dim, "dtype": "bfloat16",
+               "max_rel_err": errs, "limits": lims, "state_equal": True, "launches": launches,
+               **t, "conv_step_bound_ms": conv_bytes / HBM_BYTES_PER_S * 1e3,
+               "mamba2_step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+               "conv_step_bytes": conv_bytes, "mamba2_step_bytes": step_bytes,
+               "bound_by": "bytes", "state_copies": R}
+        row["conv_step_bound_share"] = row["conv_step_bound_ms"] / t["conv_step_ms"]
+        row["mamba2_step_bound_share"] = row["mamba2_step_bound_ms"] / t["mamba2_step_ms"]
         emit(row)
         rows.append(row)
         del states
@@ -3067,6 +3182,7 @@ def main():
     da_rows = phase_decode_attention(torch)
     ga_rows = phase_grouped_attention(torch)
     mst_rows = phase_mamba_step(torch)
+    m2_rows = phase_mamba2_step(torch)
     synth, _, launches = phase_slice(torch)
     phase_parity(torch, synth)
     phase_captured_vs_eager(torch, synth)
@@ -3190,6 +3306,19 @@ def main():
         **{f"{k}_by_case": {r["case"]: r[k] for r in mst_rows}
            for k in ("conv_step_ms", "ssm_step_ms", "conv_step_plain_ms", "ssm_step_plain_ms",
                      "plain_chain_ms", "conv_step_bound_ms", "ssm_step_bound_ms")},
+    }, {
+        "name": "mamba2_step", "route": "cuda", "source": "mamba_tts_torch/ops/csrc/mamba2_step.cu",
+        "replaces": None, "jax_counterpart": None,
+        "launches": {r["case"]: r["launches"] for r in m2_rows},
+        "max_rel_err": {r["case"]: r["max_rel_err"] for r in m2_rows},
+        "ms": m2_rows[0]["mamba2_step_ms"], "plain_ms": m2_rows[0]["mamba2_step_plain_ms"],
+        "bound_ms": m2_rows[0]["mamba2_step_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "at": "mamba2_step, B=16, 128 heads of 64, d_state 128 (the granite batch), state cold "
+              "in L2; the decode's launches are read by the granite cell's "
+              "mamba_step_launches.serve",
+        **{f"{k}_by_case": {r["case"]: r[k] for r in m2_rows}
+           for k in ("conv_step_ms", "mamba2_step_ms", "conv_step_plain_ms",
+                     "mamba2_step_plain_ms", "conv_step_bound_ms", "mamba2_step_bound_ms")},
     }] + [{
         "name": k, "route": "cuda", "source": TRAIN_SOURCES[k][0], "replaces": TRAIN_SOURCES[k][1],
         "launches": train_launches[k], **train_rows[k],

@@ -52,6 +52,56 @@ class MambaConfig:
 
 
 @dataclass(frozen=True)
+class Mamba2Config:
+    """Hyper-parameters of one Mamba-2 (SSD) mixer, as granite-4.0-h
+    publishes them (``mamba_n_heads``, ``mamba_d_head``, ``mamba_d_state``,
+    ``mamba_n_groups``, ``mamba_d_conv``, ``mamba_chunk_size``): ``n_heads``
+    heads of ``head_dim`` channels (d_inner), one A, dt and D a head, B and
+    C of ``d_state`` shared by the heads of each of ``n_groups`` groups."""
+
+    n_heads: int = 128
+    head_dim: int = 64
+    d_state: int = 128
+    n_groups: int = 1
+    d_conv: int = 4
+    chunk: int = 256
+    conv_bias: bool = True
+    use_bias: bool = False  # in_proj / out_proj bias
+
+    @property
+    def d_inner(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def conv_dim(self) -> int:
+        """Channels of the depthwise conv: x, B and C."""
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """A layer's mixture of experts (granite-4.0-h: ``num_local_experts``
+    routed experts of width ``intermediate_size``, ``num_experts_per_tok``
+    a token, and a shared MLP of ``shared_intermediate_size``).  The router
+    has ``n_experts`` outputs; this device holds ``experts_held`` of them,
+    ``first_expert`` onward (expert parallelism), and computes their share
+    of the result; 0 held: all of them."""
+
+    n_experts: int = 0  # the router's width; 0: no routed experts
+    top_k: int = 0
+    d_expert: int = 0
+    d_shared: int = 0  # the shared MLP's width; 0: none
+    experts_held: int = 0
+    first_expert: int = 0
+
+    @property
+    def held(self) -> Tuple[int, int]:
+        """[first, last) of the experts held here."""
+        n = self.experts_held or self.n_experts
+        return self.first_expert, min(self.n_experts, self.first_expert + n)
+
+
+@dataclass(frozen=True)
 class DecoderConfig:
     """Mamba TTS decoder stack (reference: mamba_decoder.py:96-105).
 
@@ -100,16 +150,35 @@ class DecoderConfig:
     # embedding, conditioned by a prefix [style || voice || text]; its
     # matrices are held in ``dtype``.
     block: str = "mave"
+    # "granite" (models/granite.py): granite-4.0-h's layers, a Mamba-2 mixer
+    # (``mamba2``) or causal self-attention by ``layer_types``, each then a
+    # mixture of experts with a shared MLP (``moe``), residuals scaled by
+    # ``residual_multiplier``, inputs by ``embedding_multiplier``, attention
+    # scores by ``attention_multiplier``, logits divided by
+    # ``logits_scaling``; the jamba block's prefix, cache and head.
     attn_layer_offset: int = 0
     attn_layer_period: int = 0  # 0: no self-attention layer
-    n_kv_heads: int = 0  # 0: n_heads (the jamba block's self-attention)
+    n_kv_heads: int = 0  # 0: n_heads (the hybrid blocks' self-attention)
+    layer_types: Tuple[str, ...] = ()  # each layer's kind, in place of the period
+    norm_eps: float = 1e-6  # the hybrid blocks' RMSNorms
+    mamba2: Mamba2Config = field(default_factory=Mamba2Config)
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0  # 0: 1 / sqrt(head_dim)
+    logits_scaling: float = 1.0
 
     @property
     def hybrid(self) -> bool:
-        return self.block == "jamba"
+        """A decoder with a prefix, self-attention and a cache
+        (``models/hybrid.py``): the jamba and granite blocks."""
+        return self.block in ("jamba", "granite")
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """"mamba" or "attention" for each layer of the jamba block."""
+        """"mamba" or "attention" for each layer of a hybrid block:
+        ``layer_types`` where given, else by the attention period."""
+        if self.layer_types:
+            return tuple(self.layer_types)
         p, o = self.attn_layer_period, self.attn_layer_offset
         return tuple("attention" if p and i % p == o else "mamba" for i in range(self.n_layers))
 
@@ -330,6 +399,8 @@ _CONFIG_TYPES = {
     c.__name__: c
     for c in (
         MambaConfig,
+        Mamba2Config,
+        MoEConfig,
         DecoderConfig,
         TextEncoderConfig,
         DurationPredictorConfig,

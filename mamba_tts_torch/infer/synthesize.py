@@ -15,9 +15,9 @@ whole decode in one launch of the Hopper kernel of
 ``ops/decode_megakernel.py``, greedy or Gumbel-max sampled, with the
 weight/K-V dtypes chosen per batch and memory length by its planner; a
 batch the planner finds no fit for takes the int8 step decode).  The jamba
-decoder (``DecoderConfig.block == "jamba"``) takes ``quant="none"`` only: a
-prefill of each row's prefix, then its captured decode
-(``models/hybrid.py`` ``hybrid_greedy_decode``).
+and granite decoders (``DecoderConfig.block`` ``"jamba"``, ``"granite"``)
+take ``quant="none"`` only: a prefill of each row's prefix, then the
+captured decode (``models/hybrid.py`` ``hybrid_greedy_decode``).
 :func:`load_synthesizer` serves the newest checkpoint of the port's train
 CLI (configured by the ``config.json`` beside it) and the released FACodec
 state dicts from local paths.
@@ -132,8 +132,8 @@ class Synthesizer:
         if quant not in ("none", "int8", "int8_kv", "megakernel"):
             raise ValueError(f"quant must be none|int8|int8_kv|megakernel, got {quant!r}")
         if cfg.decoder.hybrid and quant != "none":
-            raise ValueError(f"the jamba decoder decodes through its captured bf16 path only "
-                             f"(quant='none'), not quant={quant!r}")
+            raise ValueError(f"the {cfg.decoder.block} decoder decodes through its captured "
+                             f"bf16 path only (quant='none'), not quant={quant!r}")
         self.cfg = cfg
         self.mesh = mesh
         self.quant = quant

@@ -104,16 +104,19 @@ class CrossAttention(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Causal grouped-query self-attention (``JambaAttention``): q (H heads),
-    k and v (H_kv heads) of ``d_model / H`` channels, scale 1/sqrt(head_dim),
+    """Causal grouped-query self-attention (``JambaAttention``,
+    ``GraniteMoeHybridAttention``): q (H heads), k and v (H_kv heads) of
+    ``d_model / H`` channels, scale ``scale`` (1/sqrt(head_dim) where None),
     no biases, no positional encoding."""
 
-    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int, dtype=torch.bfloat16):
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int, dtype=torch.bfloat16,
+                 scale: Optional[float] = None):
         super().__init__()
         if d_model % n_heads or n_heads % n_kv_heads:
             raise ValueError(f"{n_heads} heads of d_model {d_model} over {n_kv_heads} K/V heads")
         self.n_heads, self.n_kv_heads = n_heads, n_kv_heads
         self.head_dim = d_model // n_heads
+        self.scale = self.head_dim ** -0.5 if scale is None else scale
         self.q_proj = Dense(d_model, n_heads * self.head_dim, bias=False, dtype=dtype)
         self.k_proj = Dense(d_model, n_kv_heads * self.head_dim, bias=False, dtype=dtype)
         self.v_proj = Dense(d_model, n_kv_heads * self.head_dim, bias=False, dtype=dtype)
@@ -127,7 +130,7 @@ class SelfAttention(nn.Module):
         k = self.k_proj(x).reshape(B, T, self.n_kv_heads, hd)
         v = self.v_proj(x).reshape(B, T, self.n_kv_heads, hd)
         out = F.scaled_dot_product_attention(q, k.transpose(1, 2), v.transpose(1, 2),
-                                             is_causal=True, scale=hd ** -0.5, enable_gqa=True)
+                                             is_causal=True, scale=self.scale, enable_gqa=True)
         return self.o_proj(out.transpose(1, 2).reshape(B, T, self.n_heads * hd)), k, v
 
     def step(self, x: torch.Tensor, K: torch.Tensor, V: torch.Tensor, mask: torch.Tensor,
@@ -142,5 +145,5 @@ class SelfAttention(nn.Module):
         V.index_put_((rows, pos), self.v_proj(x).reshape(shape).to(V.dtype))
         mask.index_put_((rows, pos), torch.ones((), dtype=torch.bool, device=mask.device))
         out = one_query.decode_attention(q, K.transpose(1, 2), V.transpose(1, 2), mask,
-                                         self.head_dim ** -0.5)
+                                         self.scale)
         return self.o_proj(out)

@@ -62,9 +62,6 @@ from mamba_tts_torch.ops.decode_attention import decode_attention
 from mamba_tts_torch.utils.profiling import annotate
 
 
-NORM_EPS = 1e-6  # every RMSNorm's (Jamba2-3B's rms_norm_eps)
-
-
 def layer_param_counts(cfg: DecoderConfig) -> dict:
     """Parameters of one layer of each kind, counted from the configuration
     (the modules below, without building them): ``mamba`` and ``attention``
@@ -109,13 +106,13 @@ class HybridLayer(nn.Module):
         super().__init__()
         dt = parse_dtype(cfg.dtype)
         self.kind = kind
-        self.norm_mixer = RMSNorm(cfg.d_model, NORM_EPS, dt)
+        eps = cfg.norm_eps
+        self.norm_mixer = RMSNorm(cfg.d_model, eps, dt)
         if kind == "mamba":
-            self.mamba = MambaBlock(cfg.with_mamba_dims().mamba, dtype=dt,
-                                    inner_norm_eps=NORM_EPS)
+            self.mamba = MambaBlock(cfg.with_mamba_dims().mamba, dtype=dt, inner_norm_eps=eps)
         else:
             self.attn = SelfAttention(cfg.d_model, cfg.n_heads, cfg.kv_heads, dtype=dt)
-        self.norm_mlp = RMSNorm(cfg.d_model, NORM_EPS, dt)
+        self.norm_mlp = RMSNorm(cfg.d_model, eps, dt)
         self.mlp = GatedMLP(cfg.d_model, cfg.d_ff, dtype=dt)
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None):
@@ -142,8 +139,21 @@ class HybridLayer(nn.Module):
         return x + self.mlp(self.norm_mlp(x)), state
 
 
+def _hold_matrices(module: nn.Module) -> nn.Module:
+    """Each ``Dense`` weight of ``module`` in its product's dtype, and each
+    Mamba conv's taps (``conv_w``) in its block's: at build, a layer at a
+    time, so that the float32 copies of no more than one layer exist."""
+    for m in module.modules():
+        if isinstance(m, Dense):
+            m.weight.data = m.weight.data.to(m.dtype)
+        elif isinstance(getattr(m, "conv_w", None), nn.Parameter):
+            m.conv_w.data = m.conv_w.data.to(m.dtype)
+    return module
+
+
 class HybridDecoder(nn.Module):
-    """The jamba decoder; see the module's docstring.  ``d_text``: the
+    """The jamba decoder, and the granite decoder's base (its layers from
+    :meth:`make_layer`); see the module's docstring.  ``d_text``: the
     width of the text encoder's output.  Every product's matrix (the Dense
     weights, the Mamba conv taps) is held in the compute dtype, as served;
     embeddings, norms, A_log and D stay f32.  The Dense biases are built in
@@ -159,22 +169,31 @@ class HybridDecoder(nn.Module):
         self.quant_embed = Embed(c.num_quantizers, c.d_model, dtype=dt)
         self.style_proj = Dense(c.d_style, c.d_model, dtype=dt)
         self.text_proj = Dense(d_text, c.d_model, dtype=dt)
+        _hold_matrices(self)
         for i, kind in enumerate(c.layer_kinds()):
-            self.add_module(f"layer_{i}", HybridLayer(c, kind))
-        self.norm_out = RMSNorm(c.d_model, NORM_EPS)
-        for m in self.modules():
-            if isinstance(m, Dense):
-                m.weight.data = m.weight.data.to(dt)
-            elif isinstance(m, MambaBlock):
-                m.conv_w.data = m.conv_w.data.to(dt)
+            self.add_module(f"layer_{i}", _hold_matrices(self.make_layer(c, kind)))
+        self.norm_out = RMSNorm(c.d_model, c.norm_eps)
+
+    def make_layer(self, cfg: DecoderConfig, kind: str) -> nn.Module:
+        """One layer of the block, of ``kind``."""
+        return HybridLayer(cfg, kind)
 
     @property
     def layers(self) -> List[HybridLayer]:
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.n_layers)]
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm, then the head tied to the token embedding, in f32."""
-        return F.linear(self.norm_out(x), self.token_embed.weight.float())
+        """Final norm, then the head tied to the token embedding, in f32
+        (divided by ``logits_scaling`` where the block has one)."""
+        logits = F.linear(self.norm_out(x), self.token_embed.weight.float())
+        s = self.cfg.logits_scaling
+        return logits if s == 1.0 else logits / s
+
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The layers' input: ``x`` times ``embedding_multiplier`` where the
+        block has one (every position, prefix and tokens)."""
+        m = self.cfg.embedding_multiplier
+        return x if m == 1.0 else x * m
 
     # ------------------------------------------------------------ embedding
 
@@ -222,8 +241,8 @@ class HybridDecoder(nn.Module):
         ``lengths[b]``; what follows a row's last token is never read."""
         if torch.is_grad_enabled() and on_card(text_hidden):
             raise NotImplementedError(
-                "the jamba decoder trains only off the card: its causal self-attention at "
-                "head_dim 128 with grouped K/V heads has no flash kernel yet")
+                f"the {self.cfg.block} decoder trains only off the card: its causal "
+                f"self-attention at head_dim 128 with grouped K/V heads has no flash kernel yet")
         if audio_tokens.dim() == 3:
             B, Q, T = audio_tokens.shape
             flat = audio_tokens.reshape(B, Q * T)
@@ -237,7 +256,8 @@ class HybridDecoder(nn.Module):
         tokens = self.embed_tokens(flat, quant_ids, pos_ids)
         at = lengths[:, None] + torch.arange(T, device=flat.device)[None]  # (B, T)
         x = torch.cat([prefix, prefix.new_zeros((B, T, prefix.shape[-1]))], dim=1)
-        x = x.scatter(1, at[..., None].expand(-1, -1, x.shape[-1]), tokens.to(x.dtype))
+        x = self._enter(x.scatter(1, at[..., None].expand(-1, -1, x.shape[-1]),
+                                  tokens.to(x.dtype)))
         for layer in self.layers:
             x, _ = layer(x)
         return self.head(torch.gather(x, 1, at[..., None].expand(-1, -1, x.shape[-1])))
@@ -249,7 +269,7 @@ class HybridDecoder(nn.Module):
         its row's ``lengths[b]`` positions, each attention layer's (K, V)
         (B, P, H_kv, head_dim))."""
         states, kvs = [], []
-        x = prefix
+        x = self._enter(prefix)
         for layer in self.layers:
             x, st = layer(x, lengths)
             (states if layer.kind == "mamba" else kvs).append(st)
@@ -268,7 +288,7 @@ class HybridDecoder(nn.Module):
         carry).  The attention layers write the token's K/V at each row's
         position ``lengths + step`` of ``cache`` and attend over its valid
         keys."""
-        x = self._embed_step(token, step, frames_per_stream)
+        x = self._enter(self._embed_step(token, step, frames_per_stream))
         pos = cache.lengths + step
         new, it_s, it_c = [], iter(states), iter(zip(cache.K, cache.V))
         for layer in self.layers:

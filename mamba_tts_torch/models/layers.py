@@ -43,7 +43,9 @@ dense_products = Executions()  # every Dense product, row_parallel's included
 dense_casts = Executions()  # those that cast their weight or bias to the compute dtype
 
 
-def _count_product(weight: torch.Tensor, bias: Optional[torch.Tensor], dtype) -> None:
+def count_product(weight: torch.Tensor, bias: Optional[torch.Tensor], dtype) -> None:
+    """Count one product with a weight (``dense_products``), and one cast
+    (``dense_casts``) where its weight or bias is wider than ``dtype``."""
     dense_products.launches += 1
     if weight.dtype != dtype or (bias is not None and bias.dtype != dtype):
         dense_casts.launches += 1
@@ -61,7 +63,7 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        _count_product(self.weight, self.bias, dt)
+        count_product(self.weight, self.bias, dt)
         b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
@@ -79,7 +81,7 @@ def row_parallel(dense: Dense, x: torch.Tensor, group) -> torch.Tensor:
     ``Dense`` without a group."""
     if group is None:
         return dense(x)
-    _count_product(dense.weight, None, dense.dtype)
+    count_product(dense.weight, None, dense.dtype)
     y = reduce_from_group(F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype)).float(),
                           group)
     if dense.bias is not None:

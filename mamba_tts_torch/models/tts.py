@@ -25,7 +25,8 @@ the decoder's scans (``cfg.decoder.use_sp_scan``).
 
 ``cfg.decoder.block == "jamba"`` puts the jamba decoder of
 ``models/hybrid.py`` in the decoder's place (one device, no mesh): the same
-losses, its conditioning a prefix instead of cross-attention and FiLM.
+losses, its conditioning a prefix instead of cross-attention and FiLM;
+``"granite"`` the granite decoder of ``models/granite.py``, likewise.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import torch.nn as nn
 
 from mamba_tts_torch.config import TTSConfig
 from mamba_tts_torch.models.decoder import MambaTTSDecoder
+from mamba_tts_torch.models.granite import GraniteDecoder
 from mamba_tts_torch.models.hybrid import HybridDecoder
 from mamba_tts_torch.models.smsd import SMSD, sample_mixture
 from mamba_tts_torch.models.style import StyleConditioningPipeline
@@ -77,8 +79,9 @@ class MambaTTS(nn.Module):
         self.smsd = SMSD(cfg.smsd)
         if cfg.decoder.hybrid:
             if mesh is not None or sp_mesh is not None:
-                raise ValueError("the jamba decoder runs on one device (no mesh)")
-            self.decoder = HybridDecoder(cfg.decoder, cfg.text_encoder.d_model)
+                raise ValueError(f"the {cfg.decoder.block} decoder runs on one device (no mesh)")
+            block = GraniteDecoder if cfg.decoder.block == "granite" else HybridDecoder
+            self.decoder = block(cfg.decoder, cfg.text_encoder.d_model)
         else:
             self.decoder = MambaTTSDecoder(cfg.decoder.with_mamba_dims(), sp_mesh, mesh)
         self.shardings = None  # name -> Split on "model" (or None), with tensor parallelism

@@ -20,10 +20,18 @@ small PyTorch kernels a layer, and the decode copied its new states back.
   step's PyTorch code as it ran before the kernels (``selective_scan_step``
   from ``ops/selective_scan.py``); the CPU path, and what the kernels are
   held to.
+- :func:`mamba2_step` — the Mamba-2 mixer's state step
+  (``models/mamba2.py`` ``Mamba2Mixer.step``, after :func:`conv_step` over
+  its x, B and C): softplus(dt + dt_bias) and exp(dt·A) a head, one
+  recurrence step of the (B, H, P, N) f32 state, y = h·C + D·x, times
+  SiLU(z); the kernel of ``csrc/mamba2_step.cu`` (d_state 128, head_dim 64,
+  one group), a source of its own so that the other decoders never build
+  it; :func:`mamba2_step_ref` its plain version.
 
 Card tensors go through the kernels or raise ``ValueError`` for what they
 do not take; CPU tensors take the plain versions.  ``launches`` counts the
-kernels' launches, two a layer a step.
+kernels' launches, two a layer a step (``conv_step`` and ``ssm_step``, or
+``conv_step`` and ``mamba2_step``).
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ D_STATES = (4, 8, 16)  # the SSM kernel's instances
 MAX_CONV = 64  # the conv kernel's largest window
 MAX_ROWS = 65_535  # the grids' rows (B)
 COMPUTE_DTYPES = (torch.bfloat16, torch.float32)  # the kernels' activations
+MAMBA2_D_STATE, MAMBA2_HEAD_DIM = 128, 64  # the Mamba-2 kernel's one instance
 
 launches = 0  # kernel launches: conv_step's and ssm_step's on the card
 
@@ -276,13 +285,143 @@ def ssm_step(dt: torch.Tensor, A_log: torch.Tensor, x_conv: torch.Tensor, z: tor
     return y, out
 
 
-def _launch(fn: str, device: torch.device, *args) -> None:
-    """One launch of ``fn`` on the device's current stream; raises on a
-    launch the library refuses."""
+def _launch(fn: str, device: torch.device, *args, lib: Optional[ctypes.CDLL] = None) -> None:
+    """One launch of ``fn`` (of ``lib``, ``csrc/mamba_step.cu``'s by default)
+    on the device's current stream; raises on a launch the library refuses."""
     global launches
-    lib = _library()
+    lib = lib or _library()
     with torch.cuda.device(device):
         err = getattr(lib, fn)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{fn} failed: {lib.mamba_step_error_string(err).decode()}")
     launches += 1
+
+
+# ---------------------------------------------------------------- Mamba-2
+
+
+def mamba2_step_ref(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, z: torch.Tensor,
+                    dt: torch.Tensor, dt_bias: torch.Tensor, A_log: torch.Tensor,
+                    D: torch.Tensor, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of one Mamba-2 state step (one group): x and z
+    (B, H·P), Bm and Cm (B, N), dt (B, H) before its bias, dt_bias, A_log
+    and D (H,) f32, h (B, H, P, N) f32.  Returns (y · silu(z) (B, H·P) f32,
+    the new state)::
+
+        delta = softplus(dt + dt_bias);  dA = exp(delta · -exp(A_log))
+        h'    = h · dA + (delta · x) ⊗ B;  y = h'·C + x · D
+    """
+    Bsz, H, P, N = h.shape
+    delta = F.softplus(dt.float() + dt_bias)  # (B, H)
+    dA = torch.exp(delta * -torch.exp(A_log))
+    xf = x.float().reshape(Bsz, H, P)
+    dx = delta[..., None] * xf
+    h_new = h * dA[..., None, None] + dx[..., None] * Bm.float()[:, None, None, :]
+    y = torch.einsum("bhpn,bn->bhp", h_new, Cm.float()) + xf * D[:, None]
+    return y.reshape(Bsz, H * P) * F.silu(z.float()), h_new
+
+
+def _library2() -> ctypes.CDLL:
+    from mamba_tts_torch.ops._build import load_library
+
+    lib = load_library("mamba2_step")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.mamba2_ssm_step_launch.argtypes = ([p] * 3 + [ll, p, ll, p, ll] + [p] * 6
+                                               + [i] * 5 + [p])
+        lib.mamba2_ssm_step_launch.restype = i
+        lib.mamba_step_error_string.argtypes = [i]
+        lib.mamba_step_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def _state2_refusal(dt_bias, A_log, D, h) -> Optional[str]:
+    """Why the Mamba-2 kernel cannot take dt_bias, A_log, D (H,) f32 and the
+    state h (B, H, 64, 128) f32, all contiguous on one device, h 16-byte
+    aligned; or None."""
+    if h.dim() != 4 or any(t.dim() != 1 for t in (dt_bias, A_log, D)):
+        return "shapes"
+    Bsz, H, P, N = h.shape
+    if any(tuple(t.shape) != (H,) for t in (dt_bias, A_log, D)):
+        return "shapes"
+    if (N, P) != (MAMBA2_D_STATE, MAMBA2_HEAD_DIM) or not 1 <= Bsz <= MAX_ROWS:
+        return "size"
+    f32 = (dt_bias, A_log, D, h)
+    if any(t.dtype != torch.float32 for t in f32):
+        return "dtype"
+    if any(t.device != h.device for t in f32):
+        return "device"
+    if not all(t.is_contiguous() for t in f32) or h.data_ptr() % 16:
+        return "layout"
+    return None
+
+
+def check_state2(dt_bias: torch.Tensor, A_log: torch.Tensor, D: torch.Tensor,
+                 h: torch.Tensor) -> None:
+    """Raise ``ValueError`` where the Mamba-2 kernel cannot take the mixer's
+    parameters or the card state h (a CPU state takes the plain version), so
+    that a refused in-place step leaves the carry as it was."""
+    if not on_card(h):
+        return
+    why = _state2_refusal(dt_bias, A_log, D, h)
+    if why is not None:
+        raise ValueError(
+            f"mamba2_step kernel does not take these tensors ({why}): dt_bias/A_log/D "
+            f"{[(t.dtype, tuple(t.shape)) for t in (dt_bias, A_log, D)]}, h {h.dtype} "
+            f"{tuple(h.shape)} strides {h.stride()}")
+
+
+def _mamba2_refusal(x, Bm, Cm, z, dt, dt_bias, A_log, D, h) -> Optional[str]:
+    """Why the Mamba-2 kernel cannot take these tensors, or None: x, z (B,
+    H·P), Bm, Cm (B, N), dt (B, H) with unit inner strides, x, B and C one
+    row stride, all in one compute dtype on the state's device; the rest as
+    :func:`check_state2` takes it; no gradient recorded."""
+    why = _state2_refusal(dt_bias, A_log, D, h)
+    if why is not None:
+        return why
+    Bsz, H, P, N = h.shape
+    if not (_rows(x, Bsz, H * P) and _rows(z, Bsz, H * P) and _rows(Bm, Bsz, N)
+            and _rows(Cm, Bsz, N) and _rows(dt, Bsz, H)):
+        return "shapes"
+    if not (x.stride(0) == Bm.stride(0) == Cm.stride(0)):
+        return "layout"
+    acts = (x, Bm, Cm, z, dt)
+    if x.dtype not in COMPUTE_DTYPES or any(t.dtype != x.dtype for t in acts):
+        return "dtype"
+    if any(t.device != h.device for t in acts):
+        return "device"
+    if _gradient(*acts, dt_bias, A_log, D, h):
+        return "a gradient is recorded (the kernel has no backward)"
+    return None
+
+
+def mamba2_step(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, z: torch.Tensor,
+                dt: torch.Tensor, dt_bias: torch.Tensor, A_log: torch.Tensor, D: torch.Tensor,
+                h: torch.Tensor, inplace: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y · silu(z) (B, H·P) f32, the new state) of one Mamba-2 step; the
+    arguments as :func:`mamba2_step_ref` takes them.  With ``inplace`` the
+    new state is written over ``h``, which is returned.  Card tensors go
+    through the kernel, one launch (counted in ``launches``), or raise; CPU
+    tensors take :func:`mamba2_step_ref`."""
+    if not on_card(h):
+        if h.device.type != "cpu":
+            raise ValueError(f"mamba2_step: unsupported device {h.device}")
+        y, new = mamba2_step_ref(x, Bm, Cm, z, dt, dt_bias, A_log, D, h)
+        return (y, h.copy_(new)) if inplace else (y, new)
+    why = _mamba2_refusal(x, Bm, Cm, z, dt, dt_bias, A_log, D, h)
+    if why is not None:
+        raise ValueError(
+            f"mamba2_step kernel does not take these tensors ({why}): x {x.dtype} "
+            f"{tuple(x.shape)} strides {x.stride()}, B/C {tuple(Bm.shape)} strides "
+            f"{Bm.stride()} / {Cm.stride()}, z strides {z.stride()}, dt {dt.dtype} "
+            f"{tuple(dt.shape)} strides {dt.stride()}, h {h.dtype} {tuple(h.shape)}")
+    Bsz, H, P, N = h.shape
+    out = h if inplace else torch.empty_like(h)
+    y = torch.empty((Bsz, H * P), dtype=torch.float32, device=h.device)
+    _launch("mamba2_ssm_step_launch", h.device,
+            x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.stride(0), z.data_ptr(), z.stride(0),
+            dt.data_ptr(), dt.stride(0), dt_bias.data_ptr(), A_log.data_ptr(), D.data_ptr(),
+            h.data_ptr(), out.data_ptr(), y.data_ptr(), Bsz, H, P, N,
+            int(x.dtype == torch.float32), lib=_library2())
+    return y, out
